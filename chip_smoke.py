@@ -1,0 +1,431 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. Device: requires CUDA, prints the card's name and power limit, turns
+   TF32 off for float32 matmuls.
+2. Build: compiles the hand-written kernels (src/repro_torch/kernels/csrc)
+   with nvcc, one process per source, and prints the build seconds and the
+   compiler's register / shared-memory report.
+3. Kernels against their plain PyTorch versions on the card, at the serving
+   path's shapes (f32 to 2e-5, bf16 to 2e-2), each timed with CUDA events
+   beside its plain version, a library call (scaled_dot_product_attention,
+   timed as a yardstick only) and its bound on this card.
+4. Model: reduced qwen2 in f32, prefill logits and 8 teacher-forced decode
+   steps on the card (kernels) against the same port on the CPU (plain
+   versions), to 1e-4.
+5. Serving: full-width qwen2-0.5b in bf16 (random weights from a seed)
+   behind MLProxy (``repro_torch.launch.serve``); every request must come
+   back with its tokens, and the attention kernels must have run once per
+   layer for every prefill and decode step.
+
+It prints a ``kernels`` JSON line, the card's name and power limit, and as
+its last line ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; f32 off the tensor cores
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MODEL_TOL = 1e-4
+SERVE_REQUESTS = 300
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------- measuring
+def device_ms(torch, fn, samples: int = 25) -> float:
+    """Median device time of one ``fn()`` over ``samples`` runs.
+
+    Before each run the stream is held busy by a sleep kernel, so the host
+    enqueues both events and the launch before the device reaches them:
+    the events then time the device, not the host's launch overhead.
+    """
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_close(torch, got, want, tol: float, what: str) -> float:
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = (got - want).abs()
+    bad = err > tol + tol * want.abs()
+    max_err = float(err.max())
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: max abs err {max_err:.3e} over tolerance {tol}")
+    return max_err
+
+
+def bound(nbytes: int, flops: float, dtype_name: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------------------------------------------ phases
+def phase_build():
+    from repro_torch.kernels import build
+
+    t0 = time.monotonic()
+    built = build.build()
+    log(f"[build] {len(built)} kernels built in {time.monotonic() - t0:.1f} s "
+        f"(nvcc {build.nvcc_path()})")
+    for name, (secs, report) in built.items():
+        log(f"[build] {name}: {secs:.1f} s")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
+
+
+def phase_kernels(torch):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    rows = {}
+    # ---- prefill: (B, S, Hq, Hkv, D, dtype, causal)
+    flash_cases = [
+        (1, 128, 14, 2, 64, torch.bfloat16, True),
+        (32, 128, 14, 2, 64, torch.bfloat16, True),
+        (2, 200, 14, 2, 64, torch.float32, True),
+        (2, 200, 14, 2, 64, torch.float32, False),
+        (2, 257, 4, 1, 32, torch.float32, True),
+    ]
+    max_err = 0.0
+    for b, s, hq, hkv, d, dtype, causal in flash_cases:
+        q = randn((b, s, hq, d), dtype)
+        k = randn((b, s, hkv, d), dtype)
+        v = randn((b, s, hkv, d), dtype)
+        dn = str(dtype).split(".")[-1]
+        err = check_close(torch, ops.flash_attention(q, k, v, causal=causal),
+                          ref.flash_attention(q, k, v, causal=causal), TOL[dn],
+                          f"flash_attention {b}x{s}x{hq}/{hkv}x{d} {dn} causal={causal}")
+        max_err = max(max_err, err)
+        log(f"[kernels] flash_attention B={b} S={s} Hq={hq} Hkv={hkv} D={d} {dn} "
+            f"causal={causal}: max abs err {err:.3e}")
+    # timed at the serving shape: B=32, prompt bucket 128, bf16, causal
+    b, s, hq, hkv, d = 32, 128, 14, 2, 64
+    q, k, v = (randn((b, s, h, d), torch.bfloat16) for h in (hq, hkv, hkv))
+    g = hq // hkv
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ke, ve = kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1)
+    ms = device_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True))
+    plain_ms = device_ms(torch, lambda: ref.flash_attention(q, k, v, causal=True))
+    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(qt, ke, ve, is_causal=True))
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * b * hq * d * s * (s + 1) / 2
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    rows["flash_attention"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:78", max_abs_err=max_err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=lib_ms, shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal",
+        bytes=nbytes, flops=flops)
+    log(f"[kernels] flash_attention timed ({rows['flash_attention']['shape']}): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+
+    # ---- decode: (B, S_max, Hq, Hkv, D, dtype, lengths)
+    s_max = 144
+    decode_cases = [(b, s_max, 14, 2, 64, torch.bfloat16, length)
+                    for b in (1, 32) for length in (1, 129, 144)] + [
+        (32, s_max, 14, 2, 64, torch.float32, 129),
+        (32, s_max, 14, 2, 64, torch.float32, "per-row"),
+        (4, 640, 4, 4, 32, torch.float32, 501),
+    ]
+    max_err = 0.0
+    for b, sm, hq, hkv, d, dtype, length in decode_cases:
+        q = randn((b, 1, hq, d), dtype)
+        kc = randn((b, sm, hkv, d), dtype)
+        vc = randn((b, sm, hkv, d), dtype)
+        if length == "per-row":
+            lens = torch.randint(1, sm + 1, (b,), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+        else:
+            lens = torch.full((1,), length, dtype=torch.int32, device="cuda")
+        dn = str(dtype).split(".")[-1]
+        err = check_close(torch, ops.decode_attention(q, kc, vc, lens),
+                          ref.decode_attention(q, kc, vc, lens), TOL[dn],
+                          f"decode_attention {b}x{sm}x{hq}/{hkv}x{d} {dn} len={length}")
+        max_err = max(max_err, err)
+        log(f"[kernels] decode_attention B={b} S_max={sm} Hq={hq} Hkv={hkv} D={d} {dn} "
+            f"len={length}: max abs err {err:.3e}")
+    # timed at the serving shape: B=32, S_max=144, every row full, bf16
+    b, hq, hkv, d, length = 32, 14, 2, 64, 144
+    q = randn((b, 1, hq, d), torch.bfloat16)
+    kc = randn((b, s_max, hkv, d), torch.bfloat16)
+    vc = randn((b, s_max, hkv, d), torch.bfloat16)
+    lens = torch.full((1,), length, dtype=torch.int32, device="cuda")
+    g = hq // hkv
+    qt = q.transpose(1, 2)
+    ke = kc[:, :length].transpose(1, 2).repeat_interleave(g, dim=1)
+    ve = vc[:, :length].transpose(1, 2).repeat_interleave(g, dim=1)
+    ms = device_ms(torch, lambda: ops.decode_attention(q, kc, vc, lens))
+    plain_ms = device_ms(torch, lambda: ref.decode_attention(q, kc, vc, lens))
+    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(qt, ke, ve))
+    nbytes = 2 * (2 * q.numel() + 2 * b * length * hkv * d) + 4
+    flops = 4 * b * hq * d * length
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    rows["decode_attention"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:65", max_abs_err=max_err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=lib_ms, shape=f"B={b} S_max={s_max} len={length} Hq={hq} Hkv={hkv} D={d} bf16",
+        bytes=nbytes, flops=flops)
+    log(f"[kernels] decode_attention timed ({rows['decode_attention']['shape']}): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
+    return rows
+
+
+def phase_model(torch):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    cfg = get_config("qwen2-0.5b").reduced()
+    model = Model(cfg)
+    params_cpu = model.init(torch.Generator().manual_seed(0))
+    params_gpu = _tree_to(params_cpu, "cuda")
+    rng = np.random.default_rng(0)
+    b, s, steps = 2, 24, 8
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int64))
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (steps, b, 1), dtype=np.int64))
+    outs = {}
+    for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        ops.reset_launches()
+        cache = model.init_cache(b, s + steps, device=dev)
+        logits, cache = model.prefill(params, prompt.to(dev), cache)
+        seq = [logits]
+        for i in range(steps):
+            logits, cache = model.decode_step(params, forced[i].to(dev), cache)
+            seq.append(logits)
+        outs[dev] = torch.cat(seq, dim=1).cpu()
+    want = {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers * steps}
+    if ops.launches() != want:  # the card run went through the kernels
+        raise AssertionError(f"kernel launches {ops.launches()} != {want}")
+    err = check_close(torch, outs["cuda"], outs["cpu"], MODEL_TOL,
+                      "reduced qwen2 card vs CPU logits")
+    log(f"[model] reduced qwen2 f32, prefill + {steps} decode steps, card (kernels) vs "
+        f"CPU (plain): max abs logit err {err:.3e} (tolerance {MODEL_TOL})")
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_serve(torch):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import OptimizerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import InferenceEngine, ReplicaPool
+
+    cfg = get_config("qwen2-0.5b")
+    # batch buckets 1..32, prompt buckets 32/128, max_len 144, 16 tokens
+    ecfg = serve.engine_config(full_size=True, gen_len=16)
+    t0 = time.monotonic()
+    pool = ReplicaPool(cfg, ecfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(pool.replicas[0].params))
+    log(f"[serve] {cfg.name}: {n_params / 1e6:.1f} M params in "
+        f"{cfg.param_dtype}, initialised on the card in {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    warm = pool.warmup()
+    log(f"[serve] warmup of {len(warm)} (bucket, prompt) pairs in "
+        f"{time.monotonic() - t0:.1f} s; second-run ms: "
+        + ", ".join(f"{k}: {1e3 * v:.1f}" for k, v in sorted(warm.items())))
+
+    rate, slo_s = serve.offered_load(warm, prompt_bucket=128)
+    log(f"[serve] {SERVE_REQUESTS} requests of 128 tokens at {rate:.3f}/s (virtual), "
+        f"SLO {1e3 * slo_s:.1f} ms, {ecfg.gen_len} tokens each")
+    engine = pool.replicas[0]
+    prefills0, steps0 = engine.prefill_calls, engine.decode_steps
+    ops.reset_launches()
+    t0 = time.monotonic()
+    result = serve.run_proxy_loop(
+        pool, n_requests=SERVE_REQUESTS, rate=rate, prompt_len=128, seed=0,
+        slo_s=slo_s, optimizer=OptimizerConfig(update_interval=5.0, initial_max_bs=2),
+        bucketing="pow2")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launches()
+    prefills = engine.prefill_calls - prefills0
+    steps = engine.decode_steps - steps0
+
+    summary = serve.summarize(result)
+    stats = result["stats"]
+    log(f"[serve] {summary['requests']} requests in {summary['batches']} batches, "
+        f"avg batch {summary['avg_batch']:.2f}, p95 {1e3 * summary['p95_s']:.1f} ms "
+        f"(virtual time), violation rate {stats['violation_rate']:.4f}, "
+        f"wall {wall:.1f} s")
+    log("[serve] measured ms per batch bucket: "
+        + ", ".join(f"{b}: {ms:.2f}" for b, ms in summary["ms_per_bucket"].items()))
+    log(f"[serve] {prefills} prefills, {steps} decode steps; kernel launches {launches}")
+
+    if summary["completed"] != SERVE_REQUESTS or stats["dispatched_requests"] != SERVE_REQUESTS:
+        raise AssertionError(f"submitted {SERVE_REQUESTS}, completed {summary['completed']}, "
+                             f"dispatched {stats['dispatched_requests']}")
+    for r in result["requests"]:
+        toks = np.asarray(r.payload)
+        if toks.shape != (ecfg.gen_len,) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {r.req_id}: bad tokens {toks!r}")
+    if not summary["avg_batch"] > 1.0:
+        raise AssertionError(f"MLProxy formed no batches above 1 (avg {summary['avg_batch']})")
+    if prefills == 0 or steps == 0:
+        raise AssertionError("the serving run made no prefill or no decode step")
+    if launches["flash_attention"] != cfg.num_layers * prefills:
+        raise AssertionError(f"flash launches {launches['flash_attention']} != "
+                             f"{cfg.num_layers} x {prefills} prefills")
+    if launches["decode_attention"] != cfg.num_layers * steps:
+        raise AssertionError(f"decode launches {launches['decode_attention']} != "
+                             f"{cfg.num_layers} x {steps} decode steps")
+
+    # full width: the fused loop and the per-token loop give the same tokens
+    ref_engine = InferenceEngine(cfg, dataclasses.replace(ecfg, fused_decode=False),
+                                 params=engine.params, device="cuda")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    a, _ = engine.generate(prompts)
+    b_, _ = ref_engine.generate(prompts)
+    if not np.array_equal(a, b_):
+        raise AssertionError("fused and per-token decode disagree at full width")
+    log("[serve] fused == per-token decode on 4 full-width prompts")
+    profile_generate(torch, engine, cfg)
+    return launches
+
+
+def profile_generate(torch, engine, cfg) -> None:
+    """Where one full-width batch's time goes: torch.profiler over one
+    generate() at the largest bucket; device busy share and kernel time by
+    name."""
+    import collections
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (32, 128)).astype(np.int32)
+    _, timing = engine.generate(prompts)
+    steps0 = engine.decode_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        engine.generate(prompts)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    steps = engine.decode_steps - steps0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    log(f"[profile] generate(32 x 128 prompt, {engine.ecfg.gen_len} tokens): "
+        f"{1e3 * timing['latency_s']:.2f} ms unprofiled, {wall_ms:.2f} ms under the profiler, "
+        f"{steps} decode steps")
+    if not kernels:
+        log("[profile] torch.profiler recorded no device time: busy share not measured")
+        return
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = collections.Counter()
+    count = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        count[e.name] += 1
+    log(f"[profile] {len(kernels)} device kernels ({len(kernels) / (steps + 1):.0f} per "
+        f"prefill-or-step), busy {busy_ms:.2f} ms of {wall_ms:.2f} ms: device idle share "
+        f"{1 - busy_ms / wall_ms:.3f}")
+    for name, ms in by_name.most_common(8):
+        log(f"[profile]   {ms:8.3f} ms  {count[name]:6d}x  {name[:90]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    t_start = time.monotonic()
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    log(f"[device] {kind} (count {torch.cuda.device_count()}); nvidia-smi: {card}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase_build()
+    rows = phase_kernels(torch)
+    phase_model(torch)
+    launches = phase_serve(torch)
+
+    kernels = []
+    for name, row in rows.items():
+        kernels.append({"name": name, "route": row["route"], "source": row["source"],
+                        "replaces": row["replaces"], "launches": launches[name],
+                        "max_abs_err": row["max_abs_err"], "max_err": row["max_abs_err"],
+                        "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"], "shape": row["shape"]})
+    log(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

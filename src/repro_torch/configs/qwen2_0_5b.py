@@ -1,0 +1,23 @@
+"""Qwen2-0.5B. 24L d_model=896 14H (GQA kv=2) d_ff=4864 vocab=151936;
+GQA with QKV bias, SwiGLU, RMSNorm, tied embeddings.
+[arXiv:2407.10671; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-0.5b",
+    family="dense",
+    num_layers=24,
+    d_model=896,
+    num_heads=14,
+    num_kv_heads=2,
+    head_dim=64,
+    d_ff=4864,
+    vocab_size=151936,
+    activation="silu",
+    norm="rmsnorm",
+    qkv_bias=True,
+    tie_embeddings=True,
+    rope_theta=1e6,
+    max_seq_len=131072,
+)

@@ -1,0 +1,21 @@
+"""MLProxy core — copies of the JAX package's numpy/stdlib control plane.
+
+The modules here are verbatim copies of ``core/`` in the JAX package,
+with only their imports pointed at this package, so the port imports
+nothing of it. The multi-endpoint frontend and the baseline policies are
+not copied yet.
+"""
+from repro_torch.core.batch_queue import BatchQueue, Policy  # noqa: F401
+from repro_torch.core.config import (  # noqa: F401
+    MonitorConfig,
+    OptimizerConfig,
+    ProxyConfig,
+    SLAConfig,
+    bucket_of,
+    ms,
+)
+from repro_torch.core.monitor import LatencyWindow, P2Quantile, SmartMonitor  # noqa: F401
+from repro_torch.core.optimizer import AIMDBatchOptimizer  # noqa: F401
+from repro_torch.core.proxy import MLProxy  # noqa: F401
+from repro_torch.core.request import Batch, Request  # noqa: F401
+from repro_torch.core.scheduler import QueueScheduler  # noqa: F401

@@ -1,0 +1,22 @@
+"""Plain PyTorch versions of every ported kernel (same signatures as ops.py).
+
+They reuse the model library's attention code, as the JAX package's
+``kernels/ref.py`` re-exports its own: the CPU path and the oracle the
+kernels are held to on the card are the same audited functions.
+"""
+from __future__ import annotations
+
+from repro_torch.models.attention import (
+    decode_attention as _decode_ref,
+    reference_attention as _naive,
+)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Plain version of ops.flash_attention (full-matrix GQA attention)."""
+    return _naive(q, k, v, causal=causal)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len):
+    """Plain version of ops.decode_attention."""
+    return _decode_ref(q, k_cache, v_cache, cache_len)

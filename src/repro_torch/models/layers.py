@@ -1,0 +1,120 @@
+"""Shared building blocks: norms, activations, RoPE, projections, embeddings.
+
+Plain functions on tensors, as in the JAX package: ``init_*`` builds a
+params dict, the matching apply function consumes it. Weights keep the JAX
+layout — ``(in, out)`` matrices, so ``x @ W`` needs no transpose.
+Parameter dtype and compute dtype are decoupled (bf16 params and matmuls
+with f32 norm and softmax accumulation on the card; f32 everywhere for the
+CPU tests).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+# ----------------------------------------------------------------- init utils
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
+               scale: Optional[float] = None, lead: Sequence[int] = ()) -> torch.Tensor:
+    """N(0, 1/in_dim) weights of shape ``(*lead, in_dim, out_dim)``.
+
+    ``lead`` is the stacked layer axis; the draw is f32 on the generator's
+    device, then cast, as the JAX package draws f32 and casts.
+    """
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    w = torch.randn((*lead, in_dim, out_dim), generator=gen, device=gen.device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype) -> torch.Tensor:
+    w = torch.randn((vocab, dim), generator=gen, device=gen.device)
+    return (w * 0.02).to(dtype)
+
+
+# ----------------------------------------------------------------------- norms
+def init_rmsnorm(dim: int, dtype, device=None, lead: Sequence[int] = ()) -> Params:
+    return {"scale": torch.ones((*lead, dim), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p["scale"].float()).to(x.dtype)
+
+
+# ----------------------------------------------------------------- activations
+GATED_ACTIVATIONS = ("silu",)  # gated (GLU) families use fused wi = [gate|up]
+
+
+def activation_fn(name: str):
+    if name == "silu":
+        return F.silu
+    raise NotImplementedError(f"activation {name!r} is not ported yet")
+
+
+# ------------------------------------------------------------------------ FFN
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
+             dtype, bias: bool = False, lead: Sequence[int] = ()) -> Params:
+    gated = activation in GATED_ACTIVATIONS
+    wi_out = 2 * d_ff if gated else d_ff
+    p = {
+        "wi": dense_init(gen, d_model, wi_out, dtype, lead=lead),
+        "wo": dense_init(gen, d_ff, d_model, dtype, scale=1.0 / math.sqrt(d_ff),
+                         lead=lead),
+    }
+    if bias:
+        p["bi"] = torch.zeros((*lead, wi_out), dtype=dtype, device=gen.device)
+        p["bo"] = torch.zeros((*lead, d_model), dtype=dtype, device=gen.device)
+    return p
+
+
+def mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    act = activation_fn(activation)
+    h = x @ p["wi"]
+    if "bi" in p:
+        h = h + p["bi"]
+    if activation in GATED_ACTIVATIONS:
+        gate, up = torch.chunk(h, 2, dim=-1)
+        h = act(gate) * up
+    else:
+        h = act(h)
+    out = h @ p["wo"]
+    if "bo" in p:
+        out = out + p["bo"]
+    return out
+
+
+# ----------------------------------------------------------------------- RoPE
+def rope_frequencies(head_dim: int, max_len: int, theta: float,
+                     device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Precompute f32 (cos, sin) tables of shape (max_len, head_dim // 2)."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    inv = 1.0 / (theta ** exponent)
+    t = torch.arange(max_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Rotate split halves (not interleaved pairs). x: (B, S, H, D);
+    positions: (B, S) absolute indices."""
+    c = cos[positions][:, :, None, :]  # (B, S, 1, D/2)
+    s = sin[positions][:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- embeddings
+def unembed(table: torch.Tensor, x: torch.Tensor,
+            head: Optional[torch.Tensor]) -> torch.Tensor:
+    """Project to f32 vocab logits; ``head`` is None for tied embeddings."""
+    w = head if head is not None else table.T
+    return (x @ w.to(x.dtype)).float()

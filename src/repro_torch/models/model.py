@@ -1,0 +1,49 @@
+"""Model facade: one uniform API over the ported architecture families.
+
+    model = Model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(0))
+    logits, cache = model.prefill(params, tokens, cache)
+    logits, cache = model.decode_step(params, tokens, cache)
+
+Only the dense family is ported; the others raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+Params = Dict[str, Any]
+
+_FAMILY_MODULES = {
+    "dense": transformer,
+}
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family not in _FAMILY_MODULES:
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported to PyTorch yet; "
+                f"ported: {sorted(_FAMILY_MODULES)}")
+        self.cfg = cfg
+        self._mod = _FAMILY_MODULES[cfg.family]
+
+    def init(self, gen: torch.Generator) -> Params:
+        return self._mod.init_params(self.cfg, gen)
+
+    def forward(self, params: Params, inputs) -> torch.Tensor:
+        logits, _ = self._mod.forward(self.cfg, params, inputs)
+        return logits
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        return self._mod.init_cache(self.cfg, batch, max_len, device=device)
+
+    def prefill(self, params: Params, inputs, cache, rope=None):
+        return self._mod.prefill(self.cfg, params, inputs, cache, rope=rope)
+
+    def decode_step(self, params: Params, tokens, cache, rope=None):
+        return self._mod.decode_step(self.cfg, params, tokens, cache, rope=rope)

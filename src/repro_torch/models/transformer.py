@@ -1,0 +1,180 @@
+"""Decoder-only transformer LM, dense family.
+
+The JAX package's ``lax.scan`` over the stacked layer axis becomes a loop
+over per-layer views of the same stacked tensors; the ``shard_activation``
+calls, which do nothing without a mesh, are dropped. Attention goes
+through ``kernels/ops.py``: the hand-written kernels on a CUDA device,
+their plain versions on the CPU.
+
+Three entry points:
+  * ``forward``       — logits over a full (B, S) sequence.
+  * ``prefill``       — run the prompt, write K/V into the cache in place,
+                        return last-position logits + cache.
+  * ``decode_step``   — one token against the KV cache, in place.
+
+As in the JAX package, the batch shares one scalar ``cache["len"]``:
+prefill sets it to the (padded) prompt length, left-pad tokens get real
+positions and are attended with no pad mask.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (
+    dense_init,
+    embed_init,
+    init_mlp,
+    init_rmsnorm,
+    apply_rope,
+    mlp,
+    rmsnorm,
+    rope_frequencies,
+    unembed,
+)
+
+Params = Dict[str, Any]
+Rope = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported to PyTorch yet")
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported to PyTorch yet")
+
+
+# ------------------------------------------------------------------- params
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """Random params on ``gen``'s device, stacked on a leading layer axis."""
+    _check_supported(cfg)
+    dev, lead = gen.device, (cfg.num_layers,)
+    params: Params = {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.dtype),
+        "layers": {
+            "attn_norm": init_rmsnorm(cfg.d_model, cfg.dtype, dev, lead),
+            "attn": attn_lib.init_attention(
+                gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                cfg.dtype, qkv_bias=cfg.qkv_bias, lead=lead),
+            "mlp_norm": init_rmsnorm(cfg.d_model, cfg.dtype, dev, lead),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                            cfg.dtype, bias=cfg.mlp_bias, lead=lead),
+        },
+        "final_norm": init_rmsnorm(cfg.d_model, cfg.dtype, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, cfg.dtype,
+                                       scale=1.0 / math.sqrt(cfg.d_model))
+    return params
+
+
+def layer_views(layers: Params, num_layers: int) -> List[Params]:
+    """Per-layer views of the stacked layer params (no copies)."""
+    if isinstance(layers, torch.Tensor):
+        return list(torch.unbind(layers, 0))
+    per_key = {k: layer_views(v, num_layers) for k, v in layers.items()}
+    return [{k: per_key[k][i] for k in per_key} for i in range(num_layers)]
+
+
+# ------------------------------------------------------------------ forward
+def _embed_tokens(cfg: ModelConfig, params: Params, tokens) -> torch.Tensor:
+    return params["embed"][tokens].to(cfg.cdtype)
+
+
+def _unembed(params: Params, x) -> torch.Tensor:
+    return unembed(params["embed"], x, params.get("lm_head"))
+
+
+def _qkv_rope(cfg: ModelConfig, p: Params, x, cos, sin, positions):
+    q, k, v = attn_lib.qkv_proj(p["attn"], x, cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+    return apply_rope(q, cos, sin, positions), apply_rope(k, cos, sin, positions), v
+
+
+def _finish_layer(cfg: ModelConfig, p: Params, x, attn_out):
+    b, s = x.shape[:2]
+    x = x + attn_out.reshape(b, s, cfg.num_heads * cfg.hd) @ p["attn"]["wo"]
+    return x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x), cfg.activation)
+
+
+def forward(cfg: ModelConfig, params: Params, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward → (logits (B, S, V) f32, aux loss 0)."""
+    _check_supported(cfg)
+    x = _embed_tokens(cfg, params, tokens)
+    b, s = x.shape[:2]
+    cos, sin = rope_frequencies(cfg.hd, s, cfg.rope_theta, device=x.device)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for p in layer_views(params["layers"], cfg.num_layers):
+        q, k, v = _qkv_rope(cfg, p, rmsnorm(p["attn_norm"], x), cos, sin, positions)
+        x = _finish_layer(cfg, p, x, kernel_ops.flash_attention(q, k, v, causal=True))
+    x = rmsnorm(params["final_norm"], x)
+    return _unembed(params, x), torch.zeros((), device=x.device)
+
+
+# ------------------------------------------------------------------ serving
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Dict[str, torch.Tensor]:
+    return attn_lib.init_kv_cache(
+        cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd, cfg.cdtype,
+        device=device)
+
+
+def _rope_for(cfg: ModelConfig, cache, rope: Optional[Rope]) -> Rope:
+    if rope is not None:
+        return rope
+    # every position a cache can hold; the rows equal the JAX package's
+    # (max_seq_len, D/2) table's first S_max rows
+    return rope_frequencies(cfg.hd, cache["k"].shape[2], cfg.rope_theta,
+                            device=cache["k"].device)
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens, cache: Dict[str, torch.Tensor],
+            rope: Optional[Rope] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run the prompt; write K/V for all layers into ``cache`` in place;
+    return (last-position logits (B, 1, V) f32, cache)."""
+    _check_supported(cfg)
+    x = _embed_tokens(cfg, params, tokens)
+    b, s = x.shape[:2]
+    cos, sin = _rope_for(cfg, cache, rope)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    k_layers = torch.unbind(cache["k"], 0)
+    v_layers = torch.unbind(cache["v"], 0)
+    for p, kc, vc in zip(layer_views(params["layers"], cfg.num_layers), k_layers, v_layers):
+        q, k, v = _qkv_rope(cfg, p, rmsnorm(p["attn_norm"], x), cos, sin, positions)
+        out = kernel_ops.flash_attention(q, k, v, causal=True)
+        kc[:, :s].copy_(k)
+        vc[:, :s].copy_(v)
+        x = _finish_layer(cfg, p, x, out)
+    cache["len"].fill_(s)
+    x_last = rmsnorm(params["final_norm"], x[:, -1:])
+    return _unembed(params, x_last), cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens, cache: Dict[str, torch.Tensor],
+                rope: Optional[Rope] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step, in place. tokens: (B, 1) int → (logits (B, 1, V), cache).
+
+    The position, the cache write index and the attended length all derive
+    from the device-side ``cache["len"]``: no host sync.
+    """
+    _check_supported(cfg)
+    x = _embed_tokens(cfg, params, tokens)
+    b = x.shape[0]
+    cos, sin = _rope_for(cfg, cache, rope)
+    cache_len = cache["len"]
+    pos = cache_len.reshape(1).long()
+    positions = pos.reshape(1, 1).expand(b, 1)
+    lengths = (cache_len + 1).reshape(1)  # includes the token written now
+    k_layers = torch.unbind(cache["k"], 0)
+    v_layers = torch.unbind(cache["v"], 0)
+    for p, kc, vc in zip(layer_views(params["layers"], cfg.num_layers), k_layers, v_layers):
+        q, k, v = _qkv_rope(cfg, p, rmsnorm(p["attn_norm"], x), cos, sin, positions)
+        attn_lib.cache_update_layer(kc, vc, k, v, pos)
+        out = kernel_ops.decode_attention(q, kc, vc, lengths)
+        x = _finish_layer(cfg, p, x, out)
+    cache["len"].add_(1)
+    x = rmsnorm(params["final_norm"], x)
+    return _unembed(params, x), cache

@@ -1,0 +1,96 @@
+"""The port's attention kernels' entry points against the JAX package's.
+
+On the CPU the port's ``ops`` wrappers run their plain PyTorch versions;
+they are held to the JAX package's Pallas kernels run in interpret mode,
+on the same numpy inputs (f32 to 2e-5, bf16 to 2e-2, the tolerances of
+``tests/test_kernels.py``). ``tests/test_torch_kernels_cuda.py`` holds
+the hand-written kernels to their plain versions on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(seed, shapes, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    j = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs]
+    return t, j
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,dtype,causal", [
+    (2, 200, 8, 2, 64, "float32", True),     # GQA 4:1, ragged block
+    (2, 257, 4, 1, 32, "bfloat16", True),    # MQA, off-by-one length
+    (1, 128, 14, 2, 64, "float32", False),   # qwen2 geometry (G = 7), full
+])
+def test_flash_attention_matches_jax_kernel(b, s, hq, hkv, d, dtype, causal):
+    (q, k, v), (jq, jk, jv) = _inputs(
+        s + hq, [(b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)], dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=128, block_k=128,
+                                interpret=True)
+    _close(tops.flash_attention(q, k, v, causal=causal), want, dtype)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,valid,dtype", [
+    (2, 144, 14, 2, 64, 129, "bfloat16"),  # qwen2 geometry, serving cache
+    (2, 128, 8, 2, 64, 77, "float32"),     # partial cache
+])
+def test_decode_attention_matches_jax_kernel(b, s, hq, hkv, d, valid, dtype):
+    (q, kc, vc), (jq, jk, jv) = _inputs(
+        s + valid, [(b, 1, hq, d), (b, s, hkv, d), (b, s, hkv, d)], dtype)
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(valid), block_k=128,
+                                 interpret=True)
+    got = tops.decode_attention(q, kc, vc, torch.tensor(valid, dtype=torch.int32))
+    _close(got, want, dtype)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    (q, k, v), _ = _inputs(0, [(1, 16, 4, 16), (1, 16, 2, 16), (1, 16, 2, 16)], "float32")
+    tops.reset_launches()
+    out = tops.flash_attention(q, k, v)
+    torch.testing.assert_close(out, tref.flash_attention(q, k, v), rtol=0, atol=0)
+    dec = tops.decode_attention(q[:, :1], k, v, 9)
+    torch.testing.assert_close(dec, tref.decode_attention(q[:, :1], k, v, 9), rtol=0, atol=0)
+    assert tops.launches() == {"flash_attention": 0, "decode_attention": 0}
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    q = torch.empty((1, 8, 4, 16), device="meta")
+    k = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.decode_attention(q[:, :1], k, k, 3)
+
+
+def test_kernel_launchers_refuse_what_the_kernels_do_not_take():
+    q, k = torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(q, k, k)  # CPU tensors never reach the kernel
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_fwd(torch.zeros((1, 8, 4, 48)), torch.zeros((1, 8, 2, 48)),
+                                torch.zeros((1, 8, 2, 48)))
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.flash_attention_fwd(torch.zeros((1, 8, 3, 16)), k, k)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_fwd(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="int32"):
+        tdec.decode_attention_fwd(q[:, :1], k, k, torch.tensor([3]))
+    with pytest.raises(ValueError, match="at most"):
+        tdec.decode_attention_fwd(torch.zeros((1, 1, 66, 16)), k, k,
+                                  torch.tensor([3], dtype=torch.int32))
