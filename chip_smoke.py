@@ -11,16 +11,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    with nvcc, one process per source, and prints the build seconds and the
    compiler's register / shared-memory report.
 3. Kernels against their plain PyTorch versions on the card, at the serving
-   path's shapes (f32 to 2e-5, bf16 to 2e-2), each timed with CUDA events
-   beside its plain version, a library call (scaled_dot_product_attention,
-   timed as a yardstick only) and its bound on this card.
-4. Model: reduced qwen2 in f32, prefill logits and 8 teacher-forced decode
-   steps on the card (kernels) against the same port on the CPU (plain
-   versions), to 1e-4.
-5. Serving: full-width qwen2-0.5b in bf16 (random weights from a seed)
-   behind MLProxy (``repro_torch.launch.serve``); every request must come
-   back with its tokens, and the attention kernels must have run once per
-   layer for every prefill and decode step.
+   paths' shapes (attention: f32 to 2e-5, bf16 to 2e-2; mLSTM twice that),
+   each timed with CUDA events beside its plain version, its bound on this
+   card and, where one PyTorch call computes the same function
+   (scaled_dot_product_attention, timed as a yardstick only), that call.
+4. Models: reduced qwen2 and reduced xLSTM in f32, prefill logits and 8
+   teacher-forced decode steps on the card (kernels) against the same port
+   on the CPU (plain versions), to 1e-4.
+5. Serving, one model after the other, each in bf16 with random weights
+   from a seed, behind MLProxy (``repro_torch.launch.serve``): full-width
+   qwen2-0.5b, then full-width xlstm-1.3b. Every request must come back
+   with its tokens; each model's kernels must have run once per layer for
+   every prefill (and, for qwen2, every decode step); the fused decode
+   loop must give the per-token loop's tokens; and a pooled cache must give
+   a batch the tokens a fresh cache gives it. Each model's launch counts
+   are set to 0 just before its serving run and read just after.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -28,6 +33,7 @@ its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -41,8 +47,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; f32 off the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MLSTM_TOL = {k: 2 * v for k, v in TOL.items()}  # the signed denominator amplifies rounding
 MODEL_TOL = 1e-4
-SERVE_REQUESTS = 300
+SERVE_REQUESTS = {"qwen2-0.5b": 300, "xlstm-1.3b": 150}
 
 
 def log(msg: str) -> None:
@@ -217,17 +224,75 @@ def phase_kernels(torch):
     log(f"[kernels] decode_attention timed ({rows['decode_attention']['shape']}): "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
+
+    # ---- parallel mLSTM: (B, S, H, D, dtype); xLSTM-1.3B's head dim is 1024
+    def mlstm_inputs(b, s, h, d, dtype):
+        q, k, v = (randn((b, s, h, d), dtype) for _ in range(3))
+        log_i = randn((b, s, h), torch.float32) * 0.5
+        log_f = F.logsigmoid(randn((b, s, h), torch.float32) + 2.0)
+        return q, k, v, log_i, log_f
+
+    mlstm_cases = [
+        (1, 128, 4, 1024, torch.bfloat16),
+        (32, 128, 4, 1024, torch.bfloat16),
+        (4, 40, 4, 1024, torch.float32),
+        (2, 200, 4, 64, torch.float32),
+        (2, 257, 2, 32, torch.float32),
+    ]
+    max_err = 0.0
+    for b, s, h, d, dtype in mlstm_cases:
+        args = mlstm_inputs(b, s, h, d, dtype)
+        dn = str(dtype).split(".")[-1]
+        err = check_close(torch, ops.mlstm_attention(*args), ref.mlstm_attention(*args),
+                          MLSTM_TOL[dn], f"mlstm_attention {b}x{s}x{h}x{d} {dn}")
+        max_err = max(max_err, err)
+        log(f"[kernels] mlstm_attention B={b} S={s} H={h} D={d} {dn}: max abs err {err:.3e}")
+    # timed at the serving shape: B=32, prompt bucket 128, bf16
+    b, s, h, d = 32, 128, 4, 1024
+    args = mlstm_inputs(b, s, h, d, torch.bfloat16)
+    ms = device_ms(torch, lambda: ops.mlstm_attention(*args))
+    plain_ms = device_ms(torch, lambda: ref.mlstm_attention(*args))
+    nbytes = 2 * 4 * b * s * h * d + 4 * 2 * b * s * h  # q, k, v, y bf16; two f32 gates
+    flops = 4 * b * h * d * s * (s + 1) / 2             # q.k and w.v over j <= i
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    rows["mlstm_attention"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/mlstm_attention.cu",
+        replaces="src/repro/kernels/mlstm_attention.py:82", max_abs_err=max_err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, shape=f"B={b} S={s} H={h} D={d} bf16")
+    log(f"[kernels] mlstm_attention timed ({rows['mlstm_attention']['shape']}): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single library call, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
     return rows
 
 
-def phase_model(torch):
+def expected_launches(cfg, prefills: int, steps: int) -> dict:
+    """Each kernel's launches for ``prefills`` prefills and ``steps``
+    decode steps of ``cfg``'s model: attention once per layer for the dense
+    family; for xLSTM the mLSTM kernel once per mLSTM block and prefill
+    (decode runs the plain recurrent cells)."""
+    from repro_torch.kernels import ops
+
+    want = {name: 0 for name in ops.WRAPPERS}
+    if cfg.family == "dense":
+        want["flash_attention"] = cfg.num_layers * prefills
+        want["decode_attention"] = cfg.num_layers * steps
+    elif cfg.family == "ssm":
+        n_mlstm = cfg.num_layers - cfg.num_layers // (cfg.mlstm_per_slstm + 1)
+        want["mlstm_attention"] = n_mlstm * prefills
+    else:
+        raise ValueError(f"no kernels known for family {cfg.family!r}")
+    return want
+
+
+def phase_model(torch, arch: str):
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model
 
-    cfg = get_config("qwen2-0.5b").reduced()
+    cfg = get_config(arch).reduced()
     model = Model(cfg)
     params_cpu = model.init(torch.Generator().manual_seed(0))
     params_gpu = _tree_to(params_cpu, "cuda")
@@ -245,13 +310,14 @@ def phase_model(torch):
             logits, cache = model.decode_step(params, forced[i].to(dev), cache)
             seq.append(logits)
         outs[dev] = torch.cat(seq, dim=1).cpu()
-    want = {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers * steps}
+    want = expected_launches(cfg, 1, steps)
     if ops.launches() != want:  # the card run went through the kernels
-        raise AssertionError(f"kernel launches {ops.launches()} != {want}")
+        raise AssertionError(f"{cfg.name}: kernel launches {ops.launches()} != {want}")
     err = check_close(torch, outs["cuda"], outs["cpu"], MODEL_TOL,
-                      "reduced qwen2 card vs CPU logits")
-    log(f"[model] reduced qwen2 f32, prefill + {steps} decode steps, card (kernels) vs "
-        f"CPU (plain): max abs logit err {err:.3e} (tolerance {MODEL_TOL})")
+                      f"{cfg.name} card vs CPU logits")
+    log(f"[model] {cfg.name} f32, prefill + {steps} decode steps, card (kernels) vs "
+        f"CPU (plain): max abs logit err {err:.3e} (tolerance {MODEL_TOL}); "
+        f"launches {ops.launches()}")
 
 
 def _tree_to(tree, device):
@@ -260,7 +326,9 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_serve(torch):
+def phase_serve(torch, arch: str) -> dict:
+    """Serve full-width ``arch`` behind MLProxy; returns the kernel launch
+    counts of the serving run alone."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -269,9 +337,11 @@ def phase_serve(torch):
     from repro_torch.launch import serve
     from repro_torch.serving.engine import InferenceEngine, ReplicaPool
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(arch)
+    n_requests = SERVE_REQUESTS[arch]
     # batch buckets 1..32, prompt buckets 32/128, max_len 144, 16 tokens
     ecfg = serve.engine_config(full_size=True, gen_len=16)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     pool = ReplicaPool(cfg, ecfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -285,14 +355,14 @@ def phase_serve(torch):
         + ", ".join(f"{k}: {1e3 * v:.1f}" for k, v in sorted(warm.items())))
 
     rate, slo_s = serve.offered_load(warm, prompt_bucket=128)
-    log(f"[serve] {SERVE_REQUESTS} requests of 128 tokens at {rate:.3f}/s (virtual), "
+    log(f"[serve] {n_requests} requests of 128 tokens at {rate:.3f}/s (virtual), "
         f"SLO {1e3 * slo_s:.1f} ms, {ecfg.gen_len} tokens each")
     engine = pool.replicas[0]
     prefills0, steps0 = engine.prefill_calls, engine.decode_steps
     ops.reset_launches()
     t0 = time.monotonic()
     result = serve.run_proxy_loop(
-        pool, n_requests=SERVE_REQUESTS, rate=rate, prompt_len=128, seed=0,
+        pool, n_requests=n_requests, rate=rate, prompt_len=128, seed=0,
         slo_s=slo_s, optimizer=OptimizerConfig(update_interval=5.0, initial_max_bs=2),
         bucketing="pow2")
     torch.cuda.synchronize()
@@ -311,8 +381,8 @@ def phase_serve(torch):
         + ", ".join(f"{b}: {ms:.2f}" for b, ms in summary["ms_per_bucket"].items()))
     log(f"[serve] {prefills} prefills, {steps} decode steps; kernel launches {launches}")
 
-    if summary["completed"] != SERVE_REQUESTS or stats["dispatched_requests"] != SERVE_REQUESTS:
-        raise AssertionError(f"submitted {SERVE_REQUESTS}, completed {summary['completed']}, "
+    if summary["completed"] != n_requests or stats["dispatched_requests"] != n_requests:
+        raise AssertionError(f"submitted {n_requests}, completed {summary['completed']}, "
                              f"dispatched {stats['dispatched_requests']}")
     for r in result["requests"]:
         toks = np.asarray(r.payload)
@@ -322,12 +392,10 @@ def phase_serve(torch):
         raise AssertionError(f"MLProxy formed no batches above 1 (avg {summary['avg_batch']})")
     if prefills == 0 or steps == 0:
         raise AssertionError("the serving run made no prefill or no decode step")
-    if launches["flash_attention"] != cfg.num_layers * prefills:
-        raise AssertionError(f"flash launches {launches['flash_attention']} != "
-                             f"{cfg.num_layers} x {prefills} prefills")
-    if launches["decode_attention"] != cfg.num_layers * steps:
-        raise AssertionError(f"decode launches {launches['decode_attention']} != "
-                             f"{cfg.num_layers} x {steps} decode steps")
+    want = expected_launches(cfg, prefills, steps)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want} for {prefills} "
+                             f"prefills and {steps} decode steps")
 
     # full width: the fused loop and the per-token loop give the same tokens
     ref_engine = InferenceEngine(cfg, dataclasses.replace(ecfg, fused_decode=False),
@@ -338,7 +406,26 @@ def phase_serve(torch):
     if not np.array_equal(a, b_):
         raise AssertionError("fused and per-token decode disagree at full width")
     log("[serve] fused == per-token decode on 4 full-width prompts")
+    del ref_engine
+    # the pooled cache after another batch gives a batch a fresh cache's tokens
+    rng = np.random.default_rng(3)
+    first, second = (rng.integers(0, cfg.vocab_size, (3, 128)).astype(np.int32)
+                     for _ in range(2))
+    engine.generate(first)
+    got, _ = engine.generate(second)
+    fresh = InferenceEngine(cfg, dataclasses.replace(ecfg, cache_pool=False),
+                            params=engine.params, device="cuda")
+    want_toks, _ = fresh.generate(second)
+    if not np.array_equal(got, want_toks):
+        raise AssertionError("a pooled cache changed the next batch's tokens")
+    log("[serve] pooled cache == fresh cache for a batch after a different batch")
+    del fresh
+    log(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated, this phase)")
     profile_generate(torch, engine, cfg)
+    del pool, engine
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -408,8 +495,17 @@ def main() -> int:
 
     phase_build()
     rows = phase_kernels(torch)
-    phase_model(torch)
-    launches = phase_serve(torch)
+    for arch in SERVE_REQUESTS:
+        phase_model(torch, arch)
+    launches = {}
+    for arch in SERVE_REQUESTS:  # each run counts only its own model's kernels
+        t0 = time.monotonic()
+        counts = phase_serve(torch, arch)
+        launches.update({k: n for k, n in counts.items() if n})
+        log(f"[serve] {arch} phase {time.monotonic() - t0:.1f} s")
+    missing = [name for name in rows if not launches.get(name)]
+    if missing:
+        raise AssertionError(f"kernels never launched on a serving path: {missing}")
 
     kernels = []
     for name, row in rows.items():

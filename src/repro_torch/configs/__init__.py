@@ -6,9 +6,11 @@ the others raise with a message saying they are not ported yet.
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
 from repro_torch.configs.qwen2_0_5b import CONFIG as _qwen2
+from repro_torch.configs.xlstm_1_3b import CONFIG as _xlstm
 
 REGISTRY = {
     "qwen2-0.5b": _qwen2,
+    "xlstm-1.3b": _xlstm,
 }
 
 ARCH_IDS = tuple(REGISTRY)
@@ -21,7 +23,6 @@ NOT_PORTED = (
     "nemotron-4-340b",
     "yi-34b",
     "zamba2-1.2b",
-    "xlstm-1.3b",
     "seamless-m4t-large-v2",
     "internvl2-76b",
 )

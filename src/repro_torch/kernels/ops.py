@@ -1,7 +1,8 @@
 """Model-layout entry points to the kernels, with their launch counts.
 
 Each wrapper takes the model's tensors — q (B, S, Hq, D), k/v or one
-layer's cache (B, S, Hkv, D) — and dispatches on where they lie:
+layer's cache (B, S, Hkv, D), the mLSTM's q/k/v (B, S, H, D) and gates
+(B, S, H) — and dispatches on where they lie:
 
 * a CUDA tensor launches the hand-written kernel (or raises: there is no
   fallback), and only then adds one to the wrapper's ``launches`` count;
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mlstm_attention as _ml
 from repro_torch.kernels import ref
 
 
@@ -56,8 +58,26 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 
 decode_attention.launches = 0
 
+
+def mlstm_attention(q, k, v, log_i, log_f, *, chunk: int = 512):
+    """Parallel mLSTM. q/k/v: (B, S, H, D); log_i, log_f: (B, S, H) f32
+    (input-gate log, log-sigmoid forget) → y (B, S, H, D) in q's dtype.
+    ``chunk`` is the plain version's query chunk (it bounds its
+    temporaries); the kernel tiles on its own and computes the same y."""
+    if q.device.type == "cuda":
+        out = _ml.mlstm_attention_fwd(q, k, v, log_i, log_f)
+        mlstm_attention.launches += 1
+        return out
+    if q.device.type == "cpu":
+        return ref.mlstm_attention(q, k, v, log_i, log_f, chunk=chunk)
+    raise _no_kernel(q, "mlstm_attention")
+
+
+mlstm_attention.launches = 0
+
 #: The ported kernels' wrappers, by kernel name.
-WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decode_attention}
+WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decode_attention,
+            "mlstm_attention": mlstm_attention}
 
 
 def reset_launches() -> None:

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of every ported kernel (same signatures as ops.py).
 
-They reuse the model library's attention code, as the JAX package's
+They reuse the model library's code, as the JAX package's
 ``kernels/ref.py`` re-exports its own: the CPU path and the oracle the
 kernels are held to on the card are the same audited functions.
 """
@@ -20,3 +20,10 @@ def flash_attention(q, k, v, *, causal: bool = True):
 def decode_attention(q, k_cache, v_cache, cache_len):
     """Plain version of ops.decode_attention."""
     return _decode_ref(q, k_cache, v_cache, cache_len)
+
+
+def mlstm_attention(q, k, v, log_i, log_f, *, chunk: int = 10**9):
+    """Plain version of ops.mlstm_attention (the model's parallel mLSTM)."""
+    from repro_torch.models.xlstm import _mlstm_parallel  # the model imports ops
+
+    return _mlstm_parallel(q, k, v, log_i, log_f, chunk=chunk)

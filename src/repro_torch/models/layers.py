@@ -48,6 +48,30 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (out * p["scale"].float()).to(x.dtype)
 
 
+def init_layernorm(dim: int, dtype, device=None, lead: Sequence[int] = ()) -> Params:
+    return {"scale": torch.ones((*lead, dim), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, dim), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """f32 statistics, biased variance (``jnp.var``), eps 1e-6."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    centered = xf - mu
+    var = torch.mean(centered * centered, dim=-1, keepdim=True)
+    out = centered * torch.rsqrt(var + eps)
+    return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def make_norm(kind: str):
+    """(init, apply) for ``ModelConfig.norm``."""
+    if kind == "rmsnorm":
+        return init_rmsnorm, rmsnorm
+    if kind == "layernorm":
+        return init_layernorm, layernorm
+    raise ValueError(f"unknown norm {kind!r}")
+
+
 # ----------------------------------------------------------------- activations
 GATED_ACTIVATIONS = ("silu",)  # gated (GLU) families use fused wi = [gate|up]
 

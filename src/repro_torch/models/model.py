@@ -5,7 +5,7 @@
     logits, cache = model.prefill(params, tokens, cache)
     logits, cache = model.decode_step(params, tokens, cache)
 
-Only the dense family is ported; the others raise.
+The dense and ssm (xLSTM) families are ported; the others raise.
 """
 from __future__ import annotations
 
@@ -14,13 +14,19 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import transformer, xlstm_model
 
 Params = Dict[str, Any]
 
 _FAMILY_MODULES = {
     "dense": transformer,
+    "ssm": xlstm_model,
 }
+#: Families whose attention takes RoPE tables (an engine builds them once).
+_ROPE_FAMILIES = ("dense",)
+#: Families whose cache is recurrent state that prefill reads: a reused
+#: cache must first be put back to ``init_cache``'s values.
+_RECURRENT_FAMILIES = ("ssm",)
 
 
 class Model:
@@ -31,6 +37,8 @@ class Model:
                 f"ported: {sorted(_FAMILY_MODULES)}")
         self.cfg = cfg
         self._mod = _FAMILY_MODULES[cfg.family]
+        self.uses_rope = cfg.family in _ROPE_FAMILIES
+        self.recurrent = cfg.family in _RECURRENT_FAMILIES
 
     def init(self, gen: torch.Generator) -> Params:
         return self._mod.init_params(self.cfg, gen)
@@ -41,6 +49,10 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, device=None):
         return self._mod.init_cache(self.cfg, batch, max_len, device=device)
+
+    def reset_cache(self, cache):
+        """Put a recurrent cache back to ``init_cache``'s values, in place."""
+        return self._mod.reset_cache(self.cfg, cache)
 
     def prefill(self, params: Params, inputs, cache, rope=None):
         return self._mod.prefill(self.cfg, params, inputs, cache, rope=rope)

@@ -24,7 +24,14 @@ per-bucket KV pool is what the kernels read.
   decode writes at the length and masks positions past it, so the stale
   rows of an earlier batch are never attended. (JAX donates the cache to
   the compiled program; here the updates are in place.)
-* **RoPE tables** are computed once per engine, on its device.
+* **Recurrent state in the pool** (the xLSTM family): prefill *reads* the
+  state it is given (the mLSTM conv prefix, the sLSTM carry), so the
+  argument above does not hold for it. A pooled recurrent cache is put back
+  to ``init_cache``'s values, in place, at every checkout: a batch gets the
+  tokens a fresh cache gives it. (The JAX engine hands the previous batch's
+  state to the next prefill; its reference here is ``cache_pool=False``.)
+* **RoPE tables** are computed once per engine, on its device, for the
+  families that use them.
 """
 from __future__ import annotations
 
@@ -95,8 +102,9 @@ class InferenceEngine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
         self.params = params
-        self.rope = rope_frequencies(cfg.hd, engine_cfg.max_len, cfg.rope_theta,
-                                     device=self.device)
+        self.rope = (rope_frequencies(cfg.hd, engine_cfg.max_len, cfg.rope_theta,
+                                      device=self.device)
+                     if self.model.uses_rope else None)
         # First use of each shape key: (bucket, plen) for prefill, bucket
         # for the per-token step, (bucket, steps) for the fused loop — the
         # keys the JAX engine compiles a program for. Eager PyTorch
@@ -107,8 +115,9 @@ class InferenceEngine:
         #: KV-cache allocations (pool misses); with the pool on, this
         #: saturates at one per bucket instead of growing per batch.
         self.cache_allocs = 0
-        #: Every prefill and decode step run, warmup included: each one
-        #: launches the attention kernel once per layer on the card.
+        #: Every prefill and decode step run, warmup included: on the card
+        #: each one launches its kernel once per attention (or, for
+        #: prefill, mLSTM) layer.
         self.prefill_calls = 0
         self.decode_steps = 0
         self.stats: Dict[str, float] = {"batches": 0, "requests": 0, "tokens": 0}
@@ -126,6 +135,8 @@ class InferenceEngine:
         if cache is None:
             cache = self.model.init_cache(bucket, self.ecfg.max_len, device=self.device)
             self.cache_allocs += 1
+        elif self.model.recurrent:
+            self.model.reset_cache(cache)
         return cache
 
     def _return_cache(self, bucket: int, cache) -> None:

@@ -36,8 +36,18 @@ def test_qwen2_config_matches_jax(reduced):
     assert _fields(t) == _jax_fields(j)
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+def test_xlstm_config_matches_jax(reduced):
+    t = tcfg.get_config("xlstm-1.3b")
+    j = jcfg.get_config("xlstm-1.3b")
+    if reduced:
+        t, j = t.reduced(), j.reduced()
+    assert _fields(t) == _jax_fields(j)
+
+
 def test_unported_archs_raise_clearly():
     assert set(tcfg.NOT_PORTED) | set(tcfg.ARCH_IDS) == set(jcfg.ARCH_IDS)
+    assert not set(tcfg.NOT_PORTED) & set(tcfg.ARCH_IDS)
     with pytest.raises(NotImplementedError, match="not ported"):
         tcfg.get_config("yi-34b")
     with pytest.raises(KeyError):

@@ -14,6 +14,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import mlstm_attention as tml
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -66,7 +67,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     torch.testing.assert_close(out, tref.flash_attention(q, k, v), rtol=0, atol=0)
     dec = tops.decode_attention(q[:, :1], k, v, 9)
     torch.testing.assert_close(dec, tref.decode_attention(q[:, :1], k, v, 9), rtol=0, atol=0)
-    assert tops.launches() == {"flash_attention": 0, "decode_attention": 0}
+    (mq, mk, mv), _ = _inputs(1, [(1, 16, 2, 32)] * 3, "float32")
+    gi, gf = torch.zeros((1, 16, 2)), torch.full((1, 16, 2), -0.1)
+    ml = tops.mlstm_attention(mq, mk, mv, gi, gf)
+    torch.testing.assert_close(ml, tref.mlstm_attention(mq, mk, mv, gi, gf), rtol=0, atol=0)
+    assert tops.launches() == {"flash_attention": 0, "decode_attention": 0,
+                               "mlstm_attention": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -76,6 +82,9 @@ def test_other_devices_raise_instead_of_falling_back():
         tops.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="no kernel"):
         tops.decode_attention(q[:, :1], k, k, 3)
+    g = torch.empty((1, 8, 4), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.mlstm_attention(q, q, q, g, g)
 
 
 def test_kernel_launchers_refuse_what_the_kernels_do_not_take():
@@ -94,3 +103,15 @@ def test_kernel_launchers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="at most"):
         tdec.decode_attention_fwd(torch.zeros((1, 1, 66, 16)), k, k,
                                   torch.tensor([3], dtype=torch.int32))
+    mq, g = torch.zeros((1, 8, 4, 32)), torch.zeros((1, 8, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        tml.mlstm_attention_fwd(mq, mq, mq, g, g)  # CPU tensors never reach the kernel
+    with pytest.raises(ValueError, match="head dim"):
+        m48 = torch.zeros((1, 8, 4, 48))
+        tml.mlstm_attention_fwd(m48, m48, m48, g, g)
+    with pytest.raises(ValueError, match="gates"):
+        tml.mlstm_attention_fwd(mq, mq, mq, g[:, :, :2], g)
+    with pytest.raises(TypeError):
+        tml.mlstm_attention_fwd(mq.half(), mq.half(), mq.half(), g, g)
+    with pytest.raises(TypeError, match="gate"):
+        tml.mlstm_attention_fwd(mq, mq, mq, g.double(), g)

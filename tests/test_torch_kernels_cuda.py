@@ -13,6 +13,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MLSTM_TOL = {k: 2 * v for k, v in TOL.items()}  # the signed denominator amplifies rounding
 
 
 def _inputs(seed, shapes, dtype):
@@ -21,9 +22,9 @@ def _inputs(seed, shapes, dtype):
             for s in shapes]
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, tol=TOL):
     torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
-                               atol=TOL[dtype], rtol=TOL[dtype])
+                               atol=tol[dtype], rtol=tol[dtype])
 
 
 @pytest.fixture
@@ -73,3 +74,22 @@ class TestKernelsOnCard:
         kc[:, 40:], vc[:, 40:] = 999.0, -999.0
         b = tops.decode_attention(q, kc, vc, lens)
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+    @pytest.mark.parametrize("b,s,h,d,dtype", [
+        (2, 128, 4, 1024, "bfloat16"),  # xLSTM-1.3B's mLSTM head dim
+        (2, 40, 4, 1024, "float32"),
+        (2, 257, 2, 32, "float32"),     # ragged S, the reduced model's head dim
+        (1, 200, 4, 64, "float32"),
+    ])
+    def test_mlstm_kernel_matches_plain(self, cuda, b, s, h, d, dtype):
+        q, k, v = (t.to(cuda) for t in _inputs(s + d, [(b, s, h, d)] * 3, dtype))
+        rng = np.random.default_rng(d)
+        log_i = torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32) * 0.5)
+        f_pre = torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32) + 2.0)
+        log_i, log_f = log_i.to(cuda), torch.nn.functional.logsigmoid(f_pre).to(cuda)
+        tops.reset_launches()
+        got = tops.mlstm_attention(q, k, v, log_i, log_f)
+        want = tref.mlstm_attention(q, k, v, log_i, log_f)
+        torch.cuda.synchronize()
+        assert tops.launches()["mlstm_attention"] == 1
+        _close(got, want, dtype, MLSTM_TOL)
