@@ -11,21 +11,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    with nvcc, one process per source, and prints the build seconds and the
    compiler's register / shared-memory report.
 3. Kernels against their plain PyTorch versions on the card, at the serving
-   paths' shapes (attention: f32 to 2e-5, bf16 to 2e-2; mLSTM twice that),
-   each timed with CUDA events beside its plain version, its bound on this
-   card and, where one PyTorch call computes the same function
-   (scaled_dot_product_attention, timed as a yardstick only), that call.
-4. Models: reduced qwen2 and reduced xLSTM in f32, prefill logits and 8
-   teacher-forced decode steps on the card (kernels) against the same port
-   on the CPU (plain versions), to 1e-4.
+   paths' shapes (attention: f32 to 2e-5, bf16 to 2e-2; mLSTM twice that,
+   the SSD scan four times, against its plain version run in f32 as the
+   kernel computes), each timed with CUDA events beside its plain
+   version, its bound on this card and, where one PyTorch call computes the
+   same function (scaled_dot_product_attention, timed as a yardstick only),
+   that call.
+4. Models: reduced qwen2, reduced xLSTM and reduced Zamba2 in f32, prefill
+   logits and 8 teacher-forced decode steps on the card (kernels) against
+   the same port on the CPU (plain versions), to 1e-4.
 5. Serving, one model after the other, each in bf16 with random weights
    from a seed, behind MLProxy (``repro_torch.launch.serve``): full-width
-   qwen2-0.5b, then full-width xlstm-1.3b. Every request must come back
-   with its tokens; each model's kernels must have run once per layer for
-   every prefill (and, for qwen2, every decode step); the fused decode
-   loop must give the per-token loop's tokens; and a pooled cache must give
-   a batch the tokens a fresh cache gives it. Each model's launch counts
-   are set to 0 just before its serving run and read just after.
+   qwen2-0.5b, full-width xlstm-1.3b, then full-width zamba2-1.2b. Every
+   request must come back with its tokens; each model's kernels must have
+   run once per layer (for Zamba2, once per Mamba layer and once per
+   shared-block application) for every prefill and, for the attention
+   models, every decode step; the fused decode loop must give the
+   per-token loop's tokens; and a pooled cache must give a batch the tokens
+   a fresh cache gives it. Each model's launch counts are set to 0 just
+   before its serving run and read just after; the ``kernels`` line sums
+   them over the three runs.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -48,8 +53,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; f32 off the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MLSTM_TOL = {k: 2 * v for k, v in TOL.items()}  # the signed denominator amplifies rounding
+SSD_TOL = {k: 4 * v for k, v in TOL.items()}  # long products of decays amplify rounding
 MODEL_TOL = 1e-4
-SERVE_REQUESTS = {"qwen2-0.5b": 300, "xlstm-1.3b": 150}
+SERVE_REQUESTS = {"qwen2-0.5b": 300, "xlstm-1.3b": 100, "zamba2-1.2b": 300}
 
 
 def log(msg: str) -> None:
@@ -139,6 +145,7 @@ def phase_kernels(torch):
         (2, 200, 14, 2, 64, torch.float32, True),
         (2, 200, 14, 2, 64, torch.float32, False),
         (2, 257, 4, 1, 32, torch.float32, True),
+        (32, 128, 32, 32, 64, torch.bfloat16, True),  # Zamba2's shared block (G = 1)
     ]
     max_err = 0.0
     for b, s, hq, hkv, d, dtype, causal in flash_cases:
@@ -181,6 +188,7 @@ def phase_kernels(torch):
         (32, s_max, 14, 2, 64, torch.float32, 129),
         (32, s_max, 14, 2, 64, torch.float32, "per-row"),
         (4, 640, 4, 4, 32, torch.float32, 501),
+        (32, s_max, 32, 32, 64, torch.bfloat16, 144),  # Zamba2's shared block (G = 1)
     ]
     max_err = 0.0
     for b, sm, hq, hkv, d, dtype, length in decode_cases:
@@ -225,6 +233,27 @@ def phase_kernels(torch):
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
 
+    # the attention kernels at Zamba2's shared-block shape, 32 q on 32 kv heads,
+    # timed for the record (the kernels line keeps the qwen2 shapes above)
+    b, h, d = 32, 32, 64
+    q, k, v = (randn((b, 128, h, d), torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = device_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True))
+    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    bound_ms, _ = bound(2 * 4 * q.numel(), 4 * b * h * d * 128 * 129 / 2, "bfloat16")
+    log(f"[kernels] flash_attention timed at Zamba2's shape (B={b} S=128 Hq=Hkv={h} D={d} "
+        f"bf16 causal): kernel {ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    q = randn((b, 1, h, d), torch.bfloat16)
+    kc, vc = (randn((b, s_max, h, d), torch.bfloat16) for _ in range(2))
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    ms = device_ms(torch, lambda: ops.decode_attention(q, kc, vc, lens))
+    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    bound_ms, _ = bound(2 * (2 * q.numel() + 2 * kc.numel()) + 4, 4 * b * h * d * s_max,
+                        "bfloat16")
+    log(f"[kernels] decode_attention timed at Zamba2's shape (B={b} S_max={s_max} len={s_max} "
+        f"Hq=Hkv={h} D={d} bf16): kernel {ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms")
+
     # ---- parallel mLSTM: (B, S, H, D, dtype); xLSTM-1.3B's head dim is 1024
     def mlstm_inputs(b, s, h, d, dtype):
         q, k, v = (randn((b, s, h, d), dtype) for _ in range(3))
@@ -263,6 +292,71 @@ def phase_kernels(torch):
     log(f"[kernels] mlstm_attention timed ({rows['mlstm_attention']['shape']}): "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single library call, "
         f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+
+    # ---- SSD scan: x, B and C as the model hands them over, views of one
+    # conv output (B, S, H·P + 2N); (B, S, H, P, N, chunk, dtype)
+    def ssd_inputs(b, s, h, p, n, dtype):
+        conv = randn((b, s, h * p + 2 * n), dtype)
+        x = conv[..., :h * p].reshape(b, s, h, p)
+        bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+        dt = F.softplus(randn((b, s, h), torch.float32))
+        a = -torch.linspace(1.0, 16.0, h, device="cuda")  # -exp(a_log) at init
+        return x, dt, a, bm, cm
+
+    ssd_cases = [
+        (1, 128, 64, 64, 64, 128, torch.bfloat16),
+        (32, 128, 64, 64, 64, 128, torch.bfloat16),  # Zamba2-1.2B's serving shape
+        (32, 32, 64, 64, 64, 128, torch.bfloat16),   # prompt bucket 32: one partial chunk
+        (2, 100, 4, 64, 64, 32, torch.bfloat16),     # ragged S over several chunks
+        (2, 100, 4, 64, 64, 32, torch.float32),
+        (2, 24, 8, 16, 16, 8, torch.float32),        # the reduced model's shape
+        (1, 33, 2, 128, 128, 128, torch.float32),    # the largest P and N
+    ]
+    # The kernel computes in f32, as the TPU kernel does, and is held to its
+    # plain version run on the same values in f32 (rounded to the working
+    # dtype once, at the end). Run in bf16, the plain version rounds its
+    # (Q x Q) weights to bf16 first, as the JAX model's ssd_chunked does:
+    # that error is larger than the kernel's and is reported, not gated.
+    max_err = max_err_bf16_plain = 0.0
+    for b, s, h, p, n, chunk, dtype in ssd_cases:
+        args = ssd_inputs(b, s, h, p, n, dtype)
+        x, dt, a, bm, cm = args
+        dn = str(dtype).split(".")[-1]
+        got = ops.ssd_scan(*args, chunk=chunk)
+        want = ref.ssd_scan(x.float(), dt, a, bm.float(), cm.float(), chunk=chunk).to(dtype)
+        err = check_close(torch, got, want, SSD_TOL[dn],
+                          f"ssd_scan {b}x{s}x{h}x{p}x{n} chunk {chunk} {dn}")
+        max_err = max(max_err, err)
+        msg = f"max abs err {err:.3e}"
+        if dtype != torch.float32:
+            plain = ref.ssd_scan(*args, chunk=chunk).float()
+            diff = (got.float() - plain).abs()
+            over = int((diff > SSD_TOL[dn] * (1 + plain.abs())).sum())
+            max_err_bf16_plain = max(max_err_bf16_plain, float(diff.max()))
+            msg += (f"; against the plain version run in {dn}: max abs err "
+                    f"{float(diff.max()):.3e}, {over} of {diff.numel()} over the tolerance")
+        log(f"[kernels] ssd_scan B={b} S={s} H={h} P={p} N={n} chunk={chunk} {dn}: {msg}")
+    # timed at the serving shape: B=32, prompt bucket 128, bf16
+    b, s, h, p, n, chunk = 32, 128, 64, 64, 64, 128
+    args = ssd_inputs(b, s, h, p, n, torch.bfloat16)
+    ms = device_ms(torch, lambda: ops.ssd_scan(*args, chunk=chunk))
+    plain_ms = device_ms(torch, lambda: ref.ssd_scan(*args, chunk=chunk))
+    nbytes = 2 * 2 * b * s * h * p + 4 * b * s * h + 2 * 2 * b * s * n + 4 * h
+    flops = 0.0  # per (batch, head): C.B and w.x over k <= q, C.h and the state update
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        flops += 2 * (q * (q + 1) / 2 * (n + p) + 2 * q * p * n)
+    flops *= b * h
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    rows["ssd_scan"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:72", max_abs_err=max_err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, shape=f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} bf16",
+        max_err_vs_bf16_plain=max_err_bf16_plain)
+    log(f"[kernels] ssd_scan timed ({rows['ssd_scan']['shape']}): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single library call, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
     return rows
 
 
@@ -270,8 +364,11 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     """Each kernel's launches for ``prefills`` prefills and ``steps``
     decode steps of ``cfg``'s model: attention once per layer for the dense
     family; for xLSTM the mLSTM kernel once per mLSTM block and prefill
-    (decode runs the plain recurrent cells)."""
+    (decode runs the plain recurrent cells); for the hybrid the SSD scan
+    once per Mamba layer and prefill (decode runs the plain step) and
+    attention once per application of the shared block."""
     from repro_torch.kernels import ops
+    from repro_torch.models import hybrid
 
     want = {name: 0 for name in ops.WRAPPERS}
     if cfg.family == "dense":
@@ -280,6 +377,11 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     elif cfg.family == "ssm":
         n_mlstm = cfg.num_layers - cfg.num_layers // (cfg.mlstm_per_slstm + 1)
         want["mlstm_attention"] = n_mlstm * prefills
+    elif cfg.family == "hybrid":
+        apps = hybrid.n_attn_apps(cfg)
+        want["ssd_scan"] = cfg.num_layers * prefills
+        want["flash_attention"] = apps * prefills
+        want["decode_attention"] = apps * steps
     else:
         raise ValueError(f"no kernels known for family {cfg.family!r}")
     return want
@@ -463,7 +565,8 @@ def profile_generate(torch, engine, cfg) -> None:
         count[e.name] += 1
     log(f"[profile] {len(kernels)} device kernels ({len(kernels) / (steps + 1):.0f} per "
         f"prefill-or-step), busy {busy_ms:.2f} ms of {wall_ms:.2f} ms: device idle share "
-        f"{1 - busy_ms / wall_ms:.3f}")
+        f"{1 - busy_ms / wall_ms:.3f} (against the unprofiled "
+        f"{1e3 * timing['latency_s']:.2f} ms: {1 - busy_ms / (1e3 * timing['latency_s']):.3f})")
     for name, ms in by_name.most_common(8):
         log(f"[profile]   {ms:8.3f} ms  {count[name]:6d}x  {name[:90]}")
 
@@ -497,11 +600,12 @@ def main() -> int:
     rows = phase_kernels(torch)
     for arch in SERVE_REQUESTS:
         phase_model(torch, arch)
-    launches = {}
+    launches = {name: 0 for name in rows}
     for arch in SERVE_REQUESTS:  # each run counts only its own model's kernels
         t0 = time.monotonic()
         counts = phase_serve(torch, arch)
-        launches.update({k: n for k, n in counts.items() if n})
+        for name, n in counts.items():  # summed: two models launch the attention kernels
+            launches[name] = launches.get(name, 0) + n
         log(f"[serve] {arch} phase {time.monotonic() - t0:.1f} s")
     missing = [name for name in rows if not launches.get(name)]
     if missing:
@@ -514,7 +618,8 @@ def main() -> int:
                         "max_abs_err": row["max_abs_err"], "max_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"], "shape": row["shape"]})
+                        "library_ms": row["library_ms"], "shape": row["shape"],
+                        "max_err_vs_bf16_plain": row.get("max_err_vs_bf16_plain")})
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,10 +7,12 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 
 from repro_torch.configs.qwen2_0_5b import CONFIG as _qwen2
 from repro_torch.configs.xlstm_1_3b import CONFIG as _xlstm
+from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2
 
 REGISTRY = {
     "qwen2-0.5b": _qwen2,
     "xlstm-1.3b": _xlstm,
+    "zamba2-1.2b": _zamba2,
 }
 
 ARCH_IDS = tuple(REGISTRY)
@@ -22,7 +24,6 @@ NOT_PORTED = (
     "starcoder2-15b",
     "nemotron-4-340b",
     "yi-34b",
-    "zamba2-1.2b",
     "seamless-m4t-large-v2",
     "internvl2-76b",
 )

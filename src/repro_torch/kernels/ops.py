@@ -2,7 +2,8 @@
 
 Each wrapper takes the model's tensors — q (B, S, Hq, D), k/v or one
 layer's cache (B, S, Hkv, D), the mLSTM's q/k/v (B, S, H, D) and gates
-(B, S, H) — and dispatches on where they lie:
+(B, S, H), the SSD scan's x (B, S, H, P), dt (B, S, H) and shared B/C
+(B, S, N) — and dispatches on where they lie:
 
 * a CUDA tensor launches the hand-written kernel (or raises: there is no
   fallback), and only then adds one to the wrapper's ``launches`` count;
@@ -19,6 +20,7 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mlstm_attention as _ml
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _no_kernel(t: torch.Tensor, what: str):
@@ -75,9 +77,27 @@ def mlstm_attention(q, k, v, log_i, log_f, *, chunk: int = 512):
 
 mlstm_attention.launches = 0
 
+
+def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
+    """Mamba-2 SSD scan from a zero state. x: (B, S, H, P); dt: (B, S, H)
+    f32 (softplus'd); a: (H,) f32 (negative); b, c: (B, S, N) shared across
+    heads → y (B, S, H, P) in x's dtype, no final state. The kernel runs
+    ``min(chunk, max(S, 8))``-row chunks, the plain version ``chunk``-row
+    ones: the same y up to rounding."""
+    if x.device.type == "cuda":
+        out = _ssd.ssd_scan_fwd(x, dt, a, b, c, chunk=chunk)
+        ssd_scan.launches += 1
+        return out
+    if x.device.type == "cpu":
+        return ref.ssd_scan(x, dt, a, b, c, chunk=chunk)
+    raise _no_kernel(x, "ssd_scan")
+
+
+ssd_scan.launches = 0
+
 #: The ported kernels' wrappers, by kernel name.
 WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decode_attention,
-            "mlstm_attention": mlstm_attention}
+            "mlstm_attention": mlstm_attention, "ssd_scan": ssd_scan}
 
 
 def reset_launches() -> None:

@@ -27,3 +27,19 @@ def mlstm_attention(q, k, v, log_i, log_f, *, chunk: int = 10**9):
     from repro_torch.models.xlstm import _mlstm_parallel  # the model imports ops
 
     return _mlstm_parallel(q, k, v, log_i, log_f, chunk=chunk)
+
+
+def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
+    """Plain version of ops.ssd_scan (the model's chunked SSD, y only)."""
+    from repro_torch.models.ssm import ssd_chunked  # the model imports ops
+
+    y, _ = ssd_chunked(x, dt, a, b, c, chunk=chunk)
+    return y
+
+
+def ssd_scan_sequential(x, dt, a, b, c):
+    """Slow sequential oracle (the exact per-step recurrence)."""
+    from repro_torch.models.ssm import ssd_reference
+
+    y, _ = ssd_reference(x, dt, a, b, c)
+    return y

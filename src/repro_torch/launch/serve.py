@@ -14,8 +14,10 @@ policy logic.
 
     PYTHONPATH=src python -m repro_torch.launch.serve               # full qwen2-0.5b on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b   # full xLSTM-1.3B
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b  # full Zamba2-1.2B
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --reduced --device cpu
 """
 from __future__ import annotations
 

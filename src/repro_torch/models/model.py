@@ -5,7 +5,8 @@
     logits, cache = model.prefill(params, tokens, cache)
     logits, cache = model.decode_step(params, tokens, cache)
 
-The dense and ssm (xLSTM) families are ported; the others raise.
+The dense, ssm (xLSTM) and hybrid (Zamba2) families are ported; the others
+raise.
 """
 from __future__ import annotations
 
@@ -14,18 +15,20 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer, xlstm_model
+from repro_torch.models import hybrid, transformer, xlstm_model
 
 Params = Dict[str, Any]
 
 _FAMILY_MODULES = {
     "dense": transformer,
     "ssm": xlstm_model,
+    "hybrid": hybrid,
 }
 #: Families whose attention takes RoPE tables (an engine builds them once).
-_ROPE_FAMILIES = ("dense",)
+_ROPE_FAMILIES = ("dense", "hybrid")
 #: Families whose cache is recurrent state that prefill reads: a reused
-#: cache must first be put back to ``init_cache``'s values.
+#: cache must first be put back to ``init_cache``'s values. (The hybrid
+#: family's prefill reads none of its state, so its cache is reused as is.)
 _RECURRENT_FAMILIES = ("ssm",)
 
 

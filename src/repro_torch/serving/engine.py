@@ -30,6 +30,13 @@ per-bucket KV pool is what the kernels read.
   to ``init_cache``'s values, in place, at every checkout: a batch gets the
   tokens a fresh cache gives it. (The JAX engine hands the previous batch's
   state to the next prefill; its reference here is ``cache_pool=False``.)
+* **Hybrid state in the pool** (the Zamba2 family): its cache holds SSM
+  state and conv prefixes too, but prefill reads none of it — it starts
+  each Mamba block from a zero state and overwrites the state, the K/V
+  rows of the prompt and the length in place. So a pooled hybrid cache is
+  reused as is, like a KV cache, with no reset. (The JAX hybrid prefill
+  reads the cache's state, so its pooled engine leaks it too; the
+  reference is again ``cache_pool=False``.)
 * **RoPE tables** are computed once per engine, on its device, for the
   families that use them.
 """
@@ -116,8 +123,9 @@ class InferenceEngine:
         #: saturates at one per bucket instead of growing per batch.
         self.cache_allocs = 0
         #: Every prefill and decode step run, warmup included: on the card
-        #: each one launches its kernel once per attention (or, for
-        #: prefill, mLSTM) layer.
+        #: each one launches its kernel once per attention layer (or shared
+        #: block application) and, for prefill, once per mLSTM or Mamba
+        #: layer.
         self.prefill_calls = 0
         self.decode_steps = 0
         self.stats: Dict[str, float] = {"batches": 0, "requests": 0, "tokens": 0}

@@ -45,6 +45,16 @@ def test_xlstm_config_matches_jax(reduced):
     assert _fields(t) == _jax_fields(j)
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+def test_zamba2_config_matches_jax(reduced):
+    t = tcfg.get_config("zamba2-1.2b")
+    j = jcfg.get_config("zamba2-1.2b")
+    if reduced:
+        t, j = t.reduced(), j.reduced()
+    assert _fields(t) == _jax_fields(j)
+    assert "zamba2-1.2b" in tcfg.ARCH_IDS and "zamba2-1.2b" not in tcfg.NOT_PORTED
+
+
 def test_unported_archs_raise_clearly():
     assert set(tcfg.NOT_PORTED) | set(tcfg.ARCH_IDS) == set(jcfg.ARCH_IDS)
     assert not set(tcfg.NOT_PORTED) & set(tcfg.ARCH_IDS)

@@ -17,6 +17,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import mlstm_attention as tml
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tssd
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -71,8 +72,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     gi, gf = torch.zeros((1, 16, 2)), torch.full((1, 16, 2), -0.1)
     ml = tops.mlstm_attention(mq, mk, mv, gi, gf)
     torch.testing.assert_close(ml, tref.mlstm_attention(mq, mk, mv, gi, gf), rtol=0, atol=0)
+    sx, sb = torch.randn((1, 16, 2, 8)), torch.randn((1, 16, 8))
+    sdt, sa = torch.full((1, 16, 2), 0.5), torch.tensor([-1.0, -2.0])
+    ssd = tops.ssd_scan(sx, sdt, sa, sb, sb, chunk=8)
+    torch.testing.assert_close(ssd, tref.ssd_scan(sx, sdt, sa, sb, sb, chunk=8),
+                               rtol=0, atol=0)
     assert tops.launches() == {"flash_attention": 0, "decode_attention": 0,
-                               "mlstm_attention": 0}
+                               "mlstm_attention": 0, "ssd_scan": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -85,6 +91,8 @@ def test_other_devices_raise_instead_of_falling_back():
     g = torch.empty((1, 8, 4), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tops.mlstm_attention(q, q, q, g, g)
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.ssd_scan(q, g, g[0, 0], q[:, :, 0], q[:, :, 0])
 
 
 def test_kernel_launchers_refuse_what_the_kernels_do_not_take():
@@ -115,3 +123,17 @@ def test_kernel_launchers_refuse_what_the_kernels_do_not_take():
         tml.mlstm_attention_fwd(mq.half(), mq.half(), mq.half(), g, g)
     with pytest.raises(TypeError, match="gate"):
         tml.mlstm_attention_fwd(mq, mq, mq, g.double(), g)
+    sx, sdt, sa, sb = (torch.zeros((1, 8, 2, 16)), torch.zeros((1, 8, 2)), torch.zeros(2),
+                       torch.zeros((1, 8, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tssd.ssd_scan_fwd(sx, sdt, sa, sb, sb)  # CPU tensors never reach the kernel
+    with pytest.raises(ValueError, match="head dim"):
+        tssd.ssd_scan_fwd(torch.zeros((1, 8, 2, 24)), sdt, sa, sb, sb)
+    with pytest.raises(ValueError, match="dt"):
+        tssd.ssd_scan_fwd(sx, sdt[:, :4], sa, sb, sb)
+    with pytest.raises(ValueError, match="chunk"):
+        tssd.ssd_scan_fwd(sx, sdt, sa, sb, sb, chunk=0)
+    with pytest.raises(TypeError):
+        tssd.ssd_scan_fwd(sx.half(), sdt, sa, sb.half(), sb.half())
+    with pytest.raises(TypeError, match="dt"):
+        tssd.ssd_scan_fwd(sx, sdt.double(), sa, sb, sb)

@@ -14,6 +14,7 @@ from repro_torch.kernels import ref as tref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MLSTM_TOL = {k: 2 * v for k, v in TOL.items()}  # the signed denominator amplifies rounding
+SSD_TOL = {k: 4 * v for k, v in TOL.items()}  # long products of decays amplify rounding
 
 
 def _inputs(seed, shapes, dtype):
@@ -25,6 +26,15 @@ def _inputs(seed, shapes, dtype):
 def _close(got, want, dtype, tol=TOL):
     torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
                                atol=tol[dtype], rtol=tol[dtype])
+
+
+def _ssd_plain_f32(x, dt, a, b, c, chunk):
+    """The SSD kernel's plain version on the same values in f32, rounded to
+    x's dtype once at the end. The kernel computes in f32, as the TPU kernel
+    does; the plain version run in bf16 rounds its (Q × Q) weights to bf16
+    first (as the JAX model's ``ssd_chunked`` does), an error larger than
+    the kernel's own."""
+    return tref.ssd_scan(x.float(), dt, a, b.float(), c.float(), chunk=chunk).to(x.dtype)
 
 
 @pytest.fixture
@@ -93,3 +103,41 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         assert tops.launches()["mlstm_attention"] == 1
         _close(got, want, dtype, MLSTM_TOL)
+
+    @pytest.mark.parametrize("b,s,h,p,n,chunk,dtype", [
+        (32, 128, 64, 64, 64, 128, "bfloat16"),  # Zamba2-1.2B's serving shape
+        (2, 100, 4, 64, 64, 32, "bfloat16"),     # ragged S, several chunks
+        (2, 100, 4, 64, 64, 32, "float32"),
+        (2, 24, 8, 16, 16, 8, "float32"),        # the reduced model's shape
+        (1, 33, 2, 128, 128, 128, "float32"),    # the largest P and N
+        (2, 40, 3, 8, 32, 16, "float32"),
+    ])
+    def test_ssd_kernel_matches_plain(self, cuda, b, s, h, p, n, chunk, dtype):
+        rng = np.random.default_rng(s + p)
+        x, bb, cc = (t.to(cuda) for t in _inputs(s, [(b, s, h, p), (b, s, n), (b, s, n)],
+                                                   dtype))
+        dt = torch.nn.functional.softplus(
+            torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32))).to(cuda)
+        a = -torch.exp(torch.from_numpy(rng.standard_normal(h).astype(np.float32)) * 0.3)
+        a = a.to(cuda)
+        tops.reset_launches()
+        got = tops.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+        want = _ssd_plain_f32(x, dt, a, bb, cc, chunk)
+        torch.cuda.synchronize()
+        assert tops.launches()["ssd_scan"] == 1
+        _close(got, want, dtype, SSD_TOL)
+
+    def test_ssd_kernel_reads_strided_views(self, cuda):
+        """x, B and C as the model hands them over: views of one conv output."""
+        b, s, h, p, n = 2, 50, 4, 16, 32
+        rng = np.random.default_rng(1)
+        conv = torch.from_numpy(rng.standard_normal((b, s, h * p + 2 * n))
+                                .astype(np.float32)).to(cuda)
+        x = conv[..., :h * p].reshape(b, s, h, p)
+        bb, cc = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+        dt = torch.from_numpy(rng.random((b, s, h)).astype(np.float32)).to(cuda)
+        a = -torch.linspace(1.0, 4.0, h, device=cuda)
+        got = tops.ssd_scan(x, dt, a, bb, cc, chunk=16)
+        want = tref.ssd_scan(x.contiguous(), dt, a, bb.contiguous(), cc.contiguous(), chunk=16)
+        torch.cuda.synchronize()
+        _close(got, want, "float32", SSD_TOL)
