@@ -87,6 +87,19 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Tuple[float, str]]:
     return built
 
 
+def check_16b_layout(t, dims: Tuple[int, ...], what: str) -> None:
+    """Raise unless ``t``'s base pointer and its strides along ``dims`` are
+    whole multiples of 16 bytes: the kernels read and write 16 bytes a lane
+    (``cp.async``, ``uint4`` loads and stores), and have no scalar path."""
+    size = t.element_size()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: base pointer not 16-byte aligned")
+    for dim in dims:
+        if (t.stride(dim) * size) % 16:
+            raise ValueError(f"{what}: stride {t.stride(dim)} of dim {dim} is not a "
+                             "multiple of 16 bytes (16-byte aligned rows needed)")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it first if needed."""
     lib = _loaded.get(name)

@@ -6,39 +6,65 @@
 // decode_attention_bhgd (_decode_kernel): for each (batch, kv head) the G
 // query heads that share the kv head go against that head's cache rows
 // [0, len) with an online softmax in f32; rows past the length are masked
-// (-1e30) and tiles past it are skipped; the row sum is clamped at 1e-30,
-// so a length of 0 gives zeros, as the TPU kernel does.
+// (-1e30) and skipped; the row sum is clamped at 1e-30, so a length of 0
+// gives zeros, as the TPU kernel does.
 //
 // Layout: q (B, 1, Hq, D) and the cache of one layer (B, S_max, Hkv, D),
-// each through its own element strides (last dim contiguous): the cache is
-// read where the model keeps it, with no per-step transpose or copy. The
-// lengths are int32 on the device (len_stride 0 broadcasts one length to
-// the batch), so the host never waits on the length.
+// each through its own element strides (last dim contiguous, rows 16-byte
+// aligned): the cache is read where the model keeps it, with no per-step
+// transpose or copy. The lengths are int32 on the device (len_stride 0
+// broadcasts one length to the batch), so the host never waits on them.
 //
-// Bound on the H100 (3.35 TB/s): at the serving shape B=32, S_max=144,
-// Hkv=2, D=64 the valid cache is at most ~2.4 MB of bf16 k+v, ~0.7 us, and
-// the work is 4·Hq·D flops per cached row: bytes bound, and below the
-// launch latency. Each (batch, kv head) block streams its cache rows once
-// for all G query heads.
+// Bound on the H100 (3.35 TB/s): the work is 4·G·D flops per cached row
+// against 4·D bytes of bf16 k+v, so bytes bound at any G. At qwen2-0.5b's
+// serving shape B=32, S_max=144, Hkv=2, D=64 the valid cache is at most
+// ~2.4 MB, ~0.7 us, below one launch's latency (~5 us measured with CUDA
+// events); at Zamba2's shared block (Hkv = 32, G = 1) ~37.7 MB, ~11.3 us.
 //
-// Design (simple first version; a split of S across blocks is later
-// work): one block per (batch, kv head) with one warp per query head
-// (any G up to 32). A tile of 32·KPL cache rows is staged in f32 in
-// shared memory, rows padded by one float so lanes reading different rows
-// hit different banks; lane t scores rows t, t+32, ..; warp shuffles
-// give the tile max and sum; the accumulator is spread over the lanes by
-// head dim.
+// Design: one block of 4 warps per (split of the cache rows, batch, kv
+// head, chunk of at most 2 q heads of its group), so a block at G = 1 has
+// 4 warps, and qwen2's G = 7 runs 4 chunks (measured on the H100 with
+// chip_smoke.py: chunks of 2 beat chunks of 4 and of 8 at buckets 1 and
+// 32 — fewer heads a lane shorten each row's chain of dot products and
+// updates, which bounds this latency-bound kernel, and the chunks re-read
+// a row from L2). A cache row is read by D·size/16 lanes with one 16-byte
+// load each (8 lanes for bf16 D=64: a warp reads 4 rows at once), straight
+// into registers, 4 rows in flight a lane; the lanes finish each row's dot
+// products for the chunk's q heads (held in registers, prescaled to log2
+// units, so exp2f does the softmax) with log2(lanes a row) xor-shuffles.
+// Each group of lanes keeps its own running max, sum and accumulator per
+// head; they merge by shuffles inside a warp and through shared memory
+// across warps.
+//
+// Split S (flash-decoding): the launcher sets the split count from
+// (B, Hkv, S_max) alone, never from the length (it lives on the device),
+// to fill the SMs where B·Hkv blocks would not. The splits of a (batch, kv
+// head, chunk) run as one thread-block cluster (at most 8 blocks, launched
+// with cudaLaunchKernelEx): each block leaves its (m, l, accumulator) in
+// its shared memory and block 0 merges them through distributed shared
+// memory (rescale by exp2(m_i - m), sum, divide by the clamped l), so there
+// is no scratch in device memory, no atomic and no second kernel. A split
+// that starts at or past its row's length reads nothing and contributes
+// m = -1e30, l = 0. Measured on the H100: at S_max = 144 one split is the
+// fastest at every bucket, so the serving shapes run one; at S_max = 4096
+// and B = 1 eight splits take under a third of one split's time.
+// Tensor cores do not help at G <= 8: the work is bytes.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kWarps = 4;
+constexpr int kRowsInFlight = 4;  // cache rows a lane loads before it computes
+constexpr int kMaxChunk = 2;  // q heads a block holds in registers
+constexpr int kMaxSplits = 8;  // blocks of a portable thread-block cluster
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -46,158 +72,284 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// 16 bytes of T as floats
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[4], float) {
+  x[0] = __uint_as_float(r.x); x[1] = __uint_as_float(r.y);
+  x[2] = __uint_as_float(r.z); x[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[8], __nv_bfloat16) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-template <typename T, int D, int KPL>
-__global__ void __launch_bounds__(1024)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ lengths,
-              int len_stride, T* __restrict__ o, int S_max, int Hkv, int group,
-              int64_t q_sb, int64_t q_sh,
-              int64_t k_sb, int64_t k_ss, int64_t k_sh,
-              int64_t v_sb, int64_t v_ss, int64_t v_sh,
-              int64_t o_sb, int64_t o_sh, float scale) {
-  constexpr int BK = 32 * KPL;          // cache rows per tile
-  constexpr int DP = D + 1;             // padded shared-memory row
-  constexpr int DL = (D + 31) / 32;     // accumulator dims per lane
-  extern __shared__ float smem[];
-  float* ks = smem;                     // [BK][DP]
-  float* vs = smem + BK * DP;           // [BK][DP]
-  float* qs = smem + 2 * BK * DP;       // [group][D]
+// m, l, acc of a partial softmax absorb another one (all may be empty:
+// m = -1e30, l = 0, acc = 0); m in log2 units
+template <int N>
+__device__ __forceinline__ void absorb(float& m, float& l, float (&acc)[N],
+                                       float mo, float lo, const float (&acco)[N]) {
+  const float mn = fmaxf(m, mo);
+  const float a = exp2f(m - mn);
+  const float bo = exp2f(mo - mn);
+  l = l * a + lo * bo;
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] = acc[e] * a + acco[e] * bo;
+  m = mn;
+}
 
-  const int b = blockIdx.x / Hkv;
-  const int hkv = blockIdx.x - b * Hkv;
+template <typename T, int D, int GC>
+__global__ void __launch_bounds__(kWarps * 32)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ lengths,
+                    int len_stride, T* __restrict__ o, int S_max, int Hkv, int group,
+                    int n_chunks, int n_splits, int split_len,
+                    int64_t q_sb, int64_t q_sh,
+                    int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                    int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                    int64_t o_sb, int64_t o_sh, float scale_log2) {
+  constexpr int U = kRowsInFlight;
+  constexpr int VEC = 16 / sizeof(T);   // elements of one 16-byte load
+  constexpr int LPR = D / VEC;          // lanes a cache row
+  constexpr int RPW = 32 / LPR;         // rows a warp reads at once
+  constexpr int NS = kWarps * RPW;      // lane groups ("streams") a block
+  __shared__ float sm_acc[kWarps][GC][D];
+  __shared__ float sm_m[kWarps][GC];
+  __shared__ float sm_l[kWarps][GC];
+
+  const int split = blockIdx.x;
+  const int chunk = blockIdx.y % n_chunks;
+  const int bh = blockIdx.y / n_chunks;
+  const int b = bh / Hkv;
+  const int hkv = bh - b * Hkv;
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int g = tid / 32;
-  const int lane = tid - g * 32;
-  const int h = hkv * group + g;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int sub = lane % LPR;           // this lane's 16 bytes of a row
+  const int sw = lane / LPR;            // this lane's stream in the warp
+  const int g0 = chunk * GC;            // first head of the chunk in the group
 
   int len = lengths[b * len_stride];
   len = min(max(len, 0), S_max);
+  const int s0 = split * split_len;
+  const int s1 = min(s0 + split_len, len);
 
-  const T* kb = k + b * k_sb + hkv * k_sh;
-  const T* vb = v + b * v_sb + hkv * v_sh;
-  for (int idx = tid; idx < group * D; idx += nthreads) {
-    const int gg = idx / D;
-    const int d = idx - gg * D;
-    qs[idx] = to_f32(q[b * q_sb + (hkv * group + gg) * q_sh + d]);
+  float qr[GC][VEC];
+#pragma unroll
+  for (int gi = 0; gi < GC; ++gi) {
+    if (g0 + gi < group) {
+      const T* qp = q + b * q_sb + (hkv * group + g0 + gi) * q_sh + sub * VEC;
+      unpack(load16(qp), qr[gi], T());
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qr[gi][e] *= scale_log2;  // scores in log2 units
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qr[gi][e] = 0.f;
+    }
+  }
+  float m[GC], l[GC], acc[GC][VEC];
+#pragma unroll
+  for (int gi = 0; gi < GC; ++gi) {
+    m[gi] = kNegInf;
+    l[gi] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[gi][e] = 0.f;
   }
 
-  float acc[DL];
+  const T* kb = k + b * k_sb + hkv * k_sh + sub * VEC;
+  const T* vb = v + b * v_sb + hkv * v_sh + sub * VEC;
+  // warp-uniform loop (the shuffles need every lane): this pass covers rows
+  // base + u·NS + sw, u < U
+  for (int base = s0 + warp * RPW; base < s1; base += NS * U) {
+    uint4 kr[U], vr[U];
+    bool ok[U];
 #pragma unroll
-  for (int i = 0; i < DL; ++i) acc[i] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
-  const float* qg = qs + g * D;
-
-  for (int k0 = 0; k0 < len; k0 += BK) {
-    __syncthreads();  // q staged / previous tile no longer read
-    for (int idx = tid; idx < BK * D; idx += nthreads) {
-      const int j = idx / D;
-      const int d = idx - j * D;
-      const int kp = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (kp < len) {
-        kx = to_f32(kb[kp * k_ss + d]);
-        vx = to_f32(vb[kp * v_ss + d]);
-      }
-      ks[j * DP + d] = kx;
-      vs[j * DP + d] = vx;
-    }
-    __syncthreads();
-
-    float s[KPL];
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int t = 0; t < KPL; ++t) {
-      const int j = lane + 32 * t;
-      const float* kr = ks + j * DP;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qg[d], kr[d], dot);
-      const float sc = (k0 + j < len) ? dot * scale : kNegInf;
-      s[t] = sc;
-      tile_max = fmaxf(tile_max, sc);
-    }
-    tile_max = warp_max(tile_max);
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    float p[KPL];
-    float psum = 0.f;
-#pragma unroll
-    for (int t = 0; t < KPL; ++t) {
-      p[t] = expf(s[t] - m_new);
-      psum += p[t];
-    }
-    psum = warp_sum(psum);
-#pragma unroll
-    for (int i = 0; i < DL; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int t = 0; t < KPL; ++t) {
-#pragma unroll 8
-      for (int src = 0; src < 32; ++src) {
-        const float pj = __shfl_sync(kFull, p[t], src);
-        const float* vr = vs + (src + 32 * t) * DP;
-#pragma unroll
-        for (int i = 0; i < DL; ++i) {
-          const int d = lane + 32 * i;
-          if (d < D) acc[i] = fmaf(pj, vr[d], acc[i]);
-        }
+    for (int u = 0; u < U; ++u) {
+      const int row = base + u * NS + sw;
+      ok[u] = row < s1;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (ok[u]) {
+        kr[u] = load16(kb + row * k_ss);
+        vr[u] = load16(vb + row * v_ss);
       }
     }
-    l = l * alpha + psum;
-    m = m_new;
+    float s[U][GC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[VEC];
+      unpack(kr[u], kf, T());
+#pragma unroll
+      for (int gi = 0; gi < GC; ++gi) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) dot = fmaf(qr[gi][e], kf[e], dot);
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
+        s[u][gi] = ok[u] ? dot : kNegInf;
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < GC; ++gi) {
+      float mx = m[gi];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][gi]);
+      const float alpha = exp2f(m[gi] - mx);
+      l[gi] *= alpha;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[gi][e] *= alpha;
+      m[gi] = mx;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+      float vf[VEC];
+      unpack(vr[u], vf, T());
+#pragma unroll
+      for (int gi = 0; gi < GC; ++gi) {
+        const float p = exp2f(s[u][gi] - m[gi]);
+        l[gi] += p;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[gi][e] = fmaf(p, vf[e], acc[gi][e]);
+      }
+    }
   }
 
-  const float denom = fmaxf(l, 1e-30f);
-  T* ob = o + b * o_sb + h * o_sh;
+  // merge the warp's streams (lanes with the same `sub` hold the same dims)
 #pragma unroll
-  for (int i = 0; i < DL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) ob[d] = from_f32<T>(acc[i] / denom);
+  for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int gi = 0; gi < GC; ++gi) {
+      const float mo = __shfl_xor_sync(kFull, m[gi], off);
+      const float lo = __shfl_xor_sync(kFull, l[gi], off);
+      float acco[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acco[e] = __shfl_xor_sync(kFull, acc[gi][e], off);
+      absorb(m[gi], l[gi], acc[gi], mo, lo, acco);
+    }
   }
+  if (sw == 0) {
+#pragma unroll
+    for (int gi = 0; gi < GC; ++gi) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sm_acc[warp][gi][sub * VEC + e] = acc[gi][e];
+      if (sub == 0) {
+        sm_m[warp][gi] = m[gi];
+        sm_l[warp][gi] = l[gi];
+      }
+    }
+  }
+  __syncthreads();
+
+  // merge the warps: one thread per (head of the chunk, dim)
+  __shared__ float sm_res[GC][D + 2];  // this block's (accumulator, m, l) a head
+  for (int idx = tid; idx < GC * D; idx += kWarps * 32) {
+    const int gi = idx / D;
+    const int d = idx - gi * D;
+    if (g0 + gi >= group) continue;
+    float mt = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, sm_m[w][gi]);
+    float lt = 0.f, at = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = exp2f(sm_m[w][gi] - mt);
+      lt = fmaf(sm_l[w][gi], wt, lt);
+      at = fmaf(sm_acc[w][gi][d], wt, at);
+    }
+    if (n_splits == 1) {
+      o[b * o_sb + (hkv * group + g0 + gi) * o_sh + d] = from_f32<T>(at / fmaxf(lt, 1e-30f));
+    } else {
+      sm_res[gi][d] = at;
+      if (d == 0) {
+        sm_res[gi][D] = mt;
+        sm_res[gi][D + 1] = lt;
+      }
+    }
+  }
+  if (n_splits == 1) return;
+
+  // the splits of this (batch, kv head, chunk) form one thread-block
+  // cluster: block 0 reads the others' results from their shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    for (int idx = tid; idx < GC * D; idx += kWarps * 32) {
+      const int gi = idx / D;
+      const int d = idx - gi * D;
+      if (g0 + gi >= group) continue;
+      float mt = kNegInf;
+      for (int r = 0; r < n_splits; ++r)
+        mt = fmaxf(mt, cluster.map_shared_rank(&sm_res[gi][0], r)[D]);
+      float lt = 0.f, at = 0.f;
+      for (int r = 0; r < n_splits; ++r) {
+        const float* rr = cluster.map_shared_rank(&sm_res[gi][0], r);
+        const float wt = exp2f(rr[D] - mt);
+        lt = fmaf(rr[D + 1], wt, lt);
+        at = fmaf(rr[d], wt, at);
+      }
+      o[b * o_sb + (hkv * group + g0 + gi) * o_sh + d] = from_f32<T>(at / fmaxf(lt, 1e-30f));
+    }
+  }
+  cluster.sync();  // every block's shared memory lives until block 0 has read it
+}
+
+struct Args {
+  const void* q; const void* k; const void* v; const int* lengths; int len_stride;
+  void* o;
+  int B, S_max, Hq, Hkv, n_splits, split_len;
+  long long qs[2], ks[3], vs[3], os[2];
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int GC>
+int launch(const Args& a) {
+  const int group = a.Hq / a.Hkv;
+  const int n_chunks = (group + GC - 1) / GC;
+  if (a.B * a.Hkv * n_chunks > 65535) return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_splits, a.B * a.Hkv * n_chunks);
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.stream = a.stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = a.n_splits;  // the splits of a (batch, kv head, chunk)
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = a.n_splits > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, decode_split_kernel<T, D, GC>, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.lengths, a.len_stride,
+      static_cast<T*>(a.o), a.S_max, a.Hkv, group, n_chunks, a.n_splits, a.split_len,
+      static_cast<int64_t>(a.qs[0]), static_cast<int64_t>(a.qs[1]),
+      static_cast<int64_t>(a.ks[0]), static_cast<int64_t>(a.ks[1]),
+      static_cast<int64_t>(a.ks[2]), static_cast<int64_t>(a.vs[0]),
+      static_cast<int64_t>(a.vs[1]), static_cast<int64_t>(a.vs[2]),
+      static_cast<int64_t>(a.os[0]), static_cast<int64_t>(a.os[1]),
+      kLog2e / sqrtf(static_cast<float>(D))));
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           int len_stride, void* o, int B, int S_max, int Hq, int Hkv,
-           const long long* qs, const long long* ks, const long long* vs,
-           const long long* os, cudaStream_t stream) {
-  // 64 cache rows a tile (32 at D=128): ~33 KB of f32 tiles in shared memory
-  constexpr int KPL = D <= 64 ? 2 : 1;
-  constexpr int BK = 32 * KPL;
-  const int group = Hq / Hkv;
-  const size_t smem = sizeof(float) * (2 * BK * (D + 1) + group * D);
-  if (smem > 48 * 1024) return -1;
-  decode_kernel<T, D, KPL><<<B * Hkv, 32 * group, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, len_stride, static_cast<T*>(o),
-      S_max, Hkv, group, qs[0], qs[1], ks[0], ks[1], ks[2], vs[0], vs[1],
-      vs[2], os[0], os[1], 1.0f / sqrtf(static_cast<float>(D)));
-  return 0;
+int dispatch_group(const Args& a) {
+  const int group = a.Hq / a.Hkv;
+  if (group <= 1) return launch<T, D, 1>(a);
+  return launch<T, D, kMaxChunk>(a);
 }
 
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v,
-               const int* lengths, int len_stride, void* o, int B, int S_max,
-               int Hq, int Hkv, const long long* qs, const long long* ks,
-               const long long* vs, const long long* os, cudaStream_t st) {
+int dispatch_d(int D, const Args& a) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, lengths, len_stride, o, B, S_max, Hq, Hkv, qs, ks, vs, os, st);
-    case 32: return launch<T, 32>(q, k, v, lengths, len_stride, o, B, S_max, Hq, Hkv, qs, ks, vs, os, st);
-    case 64: return launch<T, 64>(q, k, v, lengths, len_stride, o, B, S_max, Hq, Hkv, qs, ks, vs, os, st);
-    case 128: return launch<T, 128>(q, k, v, lengths, len_stride, o, B, S_max, Hq, Hkv, qs, ks, vs, os, st);
+    case 16: return dispatch_group<T, 16>(a);
+    case 32: return dispatch_group<T, 32>(a);
+    case 64: return dispatch_group<T, 64>(a);
+    case 128: return dispatch_group<T, 128>(a);
     default: return -2;
   }
 }
@@ -207,29 +359,32 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 extern "C" {
 
 // Returns 0 on success, a negative code for arguments the kernel does not
-// take (-1 bad head counts or sizes, -2 head dim, -3 dtype), else the
-// cudaError_t of the launch.
+// take (-1 bad head counts, sizes or splits, -2 head dim, -3 dtype), else
+// the cudaError_t of the launch. Split i covers cache rows
+// [i * split_len, (i + 1) * split_len); at most kMaxSplits splits.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          const void* lengths, int len_stride, void* o,
                          int dtype, int B, int S_max, int Hq, int Hkv, int D,
+                         int n_splits, int split_len,
                          long long q_sb, long long q_sh, long long k_sb,
                          long long k_ss, long long k_sh, long long v_sb,
                          long long v_ss, long long v_sh, long long o_sb,
                          long long o_sh, int device, void* stream) {
   if (B <= 0 || S_max <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 32) return -1;
+  if (n_splits < 1 || n_splits > kMaxSplits || split_len < 1 ||
+      static_cast<long long>(n_splits) * split_len < S_max)
+    return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long qs[2] = {q_sb, q_sh};
-  const long long ks[3] = {k_sb, k_ss, k_sh};
-  const long long vs[3] = {v_sb, v_ss, v_sh};
-  const long long os[2] = {o_sb, o_sh};
-  const int* lens = static_cast<const int*>(lengths);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, static_cast<const int*>(lengths), len_stride, o,
+               B, S_max, Hq, Hkv, n_splits, split_len,
+               {q_sb, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, {o_sb, o_sh},
+               static_cast<cudaStream_t>(stream)};
   int rc;
   if (dtype == 0) {
-    rc = dispatch_d<float>(D, q, k, v, lens, len_stride, o, B, S_max, Hq, Hkv, qs, ks, vs, os, st);
+    rc = dispatch_d<float>(D, a);
   } else if (dtype == 1) {
-    rc = dispatch_d<__nv_bfloat16>(D, q, k, v, lens, len_stride, o, B, S_max, Hq, Hkv, qs, ks, vs, os, st);
+    rc = dispatch_d<__nv_bfloat16>(D, a);
   } else {
     return -3;
   }

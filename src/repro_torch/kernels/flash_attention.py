@@ -5,12 +5,16 @@ flash_attention_bhsd`` (``_flash_kernel``). The CUDA C++ source is
 ``csrc/flash_attention.cu``; its header says what bounds the kernel on
 the H100 (bytes: ~16.8 MB, ~5 us at the serving shape B=32, S=128, Hq=14,
 Hkv=2, D=64, against ~1 us of causal flops) and what the design does
-about it.
+about it: bf16 runs on the tensor cores (``mma.sync``), float32 keeps an
+exact-f32 CUDA-core loop.
 
 Unlike the TPU wrapper, which flattens heads to ``(B·H, S, D)``, the kernel
 takes the model layout ``(B, S, H, D)`` with explicit strides, so no
-transpose or copy of q, k or v happens per call. Model-layout dispatch and
-the launch count live in ``kernels/ops.py``.
+transpose or copy of q, k or v happens per call. The bf16 kernel moves 16
+bytes a lane, so the launcher refuses bf16 tensors whose base pointer or
+batch, row or head stride is not 16-byte aligned (the model's q, k and v
+are contiguous). Model-layout dispatch and the launch count live in
+``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -63,10 +67,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}; the kernel "
                         "takes float32 or bfloat16, all alike")
     for t in (q, k, v):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError("flash_attention kernel needs q, k, v on one CUDA device")
         if t.stride(-1) != 1:
             raise ValueError("the head dim must be contiguous (stride 1)")
+        if t.dtype == torch.bfloat16:
+            build.check_16b_layout(t, (0, 1, 2), "flash_attention")
+    for t in (q, k, v):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("flash_attention kernel needs q, k, v on one CUDA device")
     o = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     lib = _lib()
     rc = lib.flash_attention_fwd(

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -62,9 +63,59 @@ class TestKernelsOnCard:
         assert tops.launches()["flash_attention"] == 1
         _close(got, want, dtype)
 
+    @pytest.mark.parametrize("s", [1, 24, 200, 257])
+    @pytest.mark.parametrize("d", [16, 32, 128])
+    def test_flash_kernel_bf16_edges(self, cuda, s, d):
+        """The tensor-core kernel at its edges: ragged and one-row tiles,
+        every head dim, G = 1, 2 and 7, causal and full."""
+        for hq, hkv in ((4, 4), (4, 2), (14, 2)):
+            q, k, v = (t.to(cuda) for t in _inputs(
+                s + d + hq, [(2, s, hq, d), (2, s, hkv, d), (2, s, hkv, d)], "bfloat16"))
+            for causal in (True, False):
+                got = tops.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                _close(got, tref.flash_attention(q, k, v, causal=causal), "bfloat16")
+
+    @pytest.mark.parametrize("b,hq,hkv", [(1, 14, 2), (32, 14, 2), (1, 32, 32), (32, 32, 32)])
+    def test_decode_kernel_bf16_lengths_across_splits(self, cuda, b, hq, hkv):
+        """Buckets 1 and 32 at qwen2's (G = 7) and Zamba2's (G = 1) heads,
+        with the planned split and forced ones: lengths 0, 1, a split
+        boundary ± 1 and S_max, and per-row lengths that put the rows of
+        one batch in different splits. Held to the plain split-and-merge rendering (a
+        length of 0 gives zeros, as the TPU kernel) and, where every
+        length is positive, to the plain version."""
+        s_max, d = 144, 64
+        q, kc, vc = (t.to(cuda) for t in _inputs(
+            b + hq, [(b, 1, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d)], "bfloat16"))
+        per_row = torch.tensor([(7 + 37 * i) % (s_max + 1) for i in range(b)],
+                               dtype=torch.int32, device=cuda)
+        cases = [(torch.tensor([n], dtype=torch.int32, device=cuda), sl)
+                 for sl in (None, 18, 48)
+                 for n in (0, 1, (sl or s_max) - 1, sl or s_max, (sl or s_max) + 1, s_max)]
+        cases += [(per_row, sl) for sl in (None, 18, 48, 72)]
+        for lens, sl in cases:
+            split_len = sl or tdec.split_plan(b, hkv, s_max)[1]
+            got = tdec.decode_attention_fwd(q, kc, vc, lens, split_len=sl)
+            torch.cuda.synchronize()
+            _close(got, tref.decode_attention_split(q, kc, vc, lens, split_len), "bfloat16")
+            if int(lens.min()) > 0:
+                _close(got, tref.decode_attention(q, kc, vc, lens), "bfloat16")
+
+    def test_decode_kernel_ignores_padding_content_bf16_split(self, cuda):
+        q, kc, vc = (t.to(cuda) for t in _inputs(
+            1, [(2, 1, 14, 64), (2, 144, 2, 64), (2, 144, 2, 64)], "bfloat16"))
+        lens = torch.tensor([40], dtype=torch.int32, device=cuda)
+        a = tdec.decode_attention_fwd(q, kc, vc, lens, split_len=24)  # splits 2-5 past 40
+        kc[:, 40:], vc[:, 40:] = 999.0, -999.0
+        b = tdec.decode_attention_fwd(q, kc, vc, lens, split_len=24)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
     @pytest.mark.parametrize("b,s,hq,hkv,d,dtype", [
         (32, 144, 14, 2, 64, "bfloat16"),
         (4, 640, 4, 4, 32, "float32"),
+        (3, 100, 32, 2, 32, "float32"),    # G = 16: eight chunks of 2 q heads
+        (2, 144, 32, 32, 128, "bfloat16"),
     ])
     def test_decode_kernel_matches_plain_per_row_lengths(self, cuda, b, s, hq, hkv, d, dtype):
         q, kc, vc = (t.to(cuda) for t in _inputs(
