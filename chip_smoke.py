@@ -10,17 +10,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build: compiles the hand-written kernels (src/repro_torch/kernels/csrc)
    with nvcc, one process per source, and prints the build seconds and,
    for each kernel instantiation, its registers, static shared memory and
-   spills from the compiler's report.
+   spills from the compiler's report, and the tensor-core (HMMA)
+   instructions of the flash, mLSTM and SSD libraries (it fails if a bf16
+   tensor-core instantiation has none).
 3. Kernels against their plain PyTorch versions on the card, at the serving
    paths' shapes and at the kernels' edges (attention: f32 to 2e-5, bf16 to
    2e-2; mLSTM twice that, the SSD scan four times, against its plain
-   version run in f32 as the kernel computes), each timed with CUDA events
+   version run in f32 as the kernel computes; the bf16 mLSTM and SSD kernels
+   also against their plain renderings, ``ref.mlstm_attention_sliced`` and
+   ``ref.ssd_scan_grouped``, to 2e-2), each timed with CUDA events
    beside its plain version, its bound on this card and, where one PyTorch
    call computes the same function (scaled_dot_product_attention, timed as
    a yardstick only), that call and the kernel/SDPA ratio. The decode
    timings also record the choice behind the launcher's split plan (time
-   by rows a split), and one elementwise launch gives the floor of a timed
-   call.
+   by rows a split), the SSD timings that behind its heads a block, and one
+   elementwise launch gives the floor of a timed call.
 4. Models: reduced qwen2, reduced xLSTM and reduced Zamba2 in f32, prefill
    logits and 8 teacher-forced decode steps on the card (kernels) against
    the same port on the CPU (plain versions), to 1e-4.
@@ -59,6 +63,9 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MLSTM_TOL = {k: 2 * v for k, v in TOL.items()}  # the signed denominator amplifies rounding
 SSD_TOL = {k: 4 * v for k, v in TOL.items()}  # long products of decays amplify rounding
 MODEL_TOL = 1e-4
+#: library -> name prefix of its bf16 tensor-core instantiations
+TENSOR_CORE_KERNELS = {"flash_attention": "flash_mma_kernel",
+                       "mlstm_attention": "mlstm_mma_kernel", "ssd_scan": "ssd_mma_kernel"}
 SERVE_REQUESTS = {"qwen2-0.5b": 300, "xlstm-1.3b": 100, "zamba2-1.2b": 300}
 
 
@@ -137,12 +144,15 @@ def phase_build():
         log(f"[build] {name}: {secs:.1f} s")
         for kernel, regs, smem, spill in ptxas_summary(report):
             log(f"[build]   {kernel}: {regs} registers, {smem} B static smem, {spill} B spilled")
-    # the bf16 flash kernels run on the tensor cores: count their HMMA instructions
-    counts = sass_mma_counts(build.library_path("flash_attention"))
-    log("[build] tensor-core (HMMA) instructions in the flash library (cuobjdump -sass): "
-        + ", ".join(f"{k}: {n}" for k, n in sorted(counts.items())))
-    if not all(n > 0 for k, n in counts.items() if k.startswith("flash_mma_kernel")):
-        raise AssertionError(f"a bf16 flash kernel issues no mma instruction: {counts}")
+    # the bf16 flash, mLSTM and SSD kernels run on the tensor cores: count
+    # their HMMA instructions
+    for name, prefix in TENSOR_CORE_KERNELS.items():
+        counts = sass_mma_counts(build.library_path(name))
+        log(f"[build] tensor-core (HMMA) instructions in the {name} library (cuobjdump -sass): "
+            + ", ".join(f"{k}: {n}" for k, n in sorted(counts.items()) if k.startswith(prefix)))
+        mma = {k: n for k, n in counts.items() if k.startswith(prefix)}
+        if not mma or not all(n > 0 for n in mma.values()):
+            raise AssertionError(f"a bf16 {name} kernel issues no mma instruction: {counts}")
 
 
 def kernel_name(mangled: str) -> str:
@@ -205,7 +215,9 @@ def phase_kernels(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as _dec
+    from repro_torch.kernels import mlstm_attention as _ml
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as _ssd
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -408,14 +420,27 @@ def phase_kernels(torch):
         (2, 200, 4, 64, torch.float32),
         (2, 257, 2, 32, torch.float32),
     ]
+    # the tensor-core (bf16) kernel's edges: one row, ragged and several
+    # 64-row query tiles, one D-slice (64, 128) and a cluster of 8 (1024);
+    # then every other D it dispatches: one slice of 32, clusters of 2 and 4
+    mlstm_cases += [(2, s, 2, d, torch.bfloat16)
+                    for s in (1, 17, 128, 200, 257) for d in (64, 128, 1024)]
+    mlstm_cases += [(2, s, 2, d, torch.bfloat16) for s in (70, 200) for d in (32, 256, 512)]
     max_err = 0.0
     for b, s, h, d, dtype in mlstm_cases:
         args = mlstm_inputs(b, s, h, d, dtype)
         dn = str(dtype).split(".")[-1]
-        err = check_close(torch, ops.mlstm_attention(*args), ref.mlstm_attention(*args),
+        got = ops.mlstm_attention(*args)
+        err = check_close(torch, got, ref.mlstm_attention(*args),
                           MLSTM_TOL[dn], f"mlstm_attention {b}x{s}x{h}x{d} {dn}")
         max_err = max(max_err, err)
-        log(f"[kernels] mlstm_attention B={b} S={s} H={h} D={d} {dn}: max abs err {err:.3e}")
+        msg = f"max abs err {err:.3e}"
+        if dtype == torch.bfloat16:  # and the kernel's own arithmetic, rendered plainly
+            rend = check_close(torch, got,
+                               ref.mlstm_attention_sliced(*args, slice_cols=_ml.SLICE), TOL[dn],
+                               f"mlstm_attention {b}x{s}x{h}x{d} {dn} vs its rendering")
+            msg += f"; against the D-sliced hi/lo rendering {rend:.3e}"
+        log(f"[kernels] mlstm_attention B={b} S={s} H={h} D={d} {dn}: {msg}")
     # timed at the serving shape: B=32, prompt bucket 128, bf16
     b, s, h, d = 32, 128, 4, 1024
     args = mlstm_inputs(b, s, h, d, torch.bfloat16)
@@ -430,8 +455,8 @@ def phase_kernels(torch):
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None, shape=f"B={b} S={s} H={h} D={d} bf16")
     log(f"[kernels] mlstm_attention timed ({rows['mlstm_attention']['shape']}): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single library call, "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, no single library call, "
+        f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
 
     # ---- SSD scan: x, B and C as the model hands them over, views of one
     # conv output (B, S, H·P + 2N); (B, S, H, P, N, chunk, dtype)
@@ -451,7 +476,12 @@ def phase_kernels(torch):
         (2, 100, 4, 64, 64, 32, torch.float32),
         (2, 24, 8, 16, 16, 8, torch.float32),        # the reduced model's shape
         (1, 33, 2, 128, 128, 128, torch.float32),    # the largest P and N
+        (2, 40, 3, 8, 32, 16, torch.bfloat16),       # P = 8: the CUDA-core kernel in bf16
     ]
+    # the tensor-core (bf16) kernel's edges: P = N in {16, 64, 128}, chunks 32
+    # and 128, one row, ragged S in one and in several chunks
+    ssd_cases += [(2, s, 3, pn, pn, chunk, torch.bfloat16)
+                  for pn in (16, 64, 128) for chunk in (32, 128) for s in (1, 70, 300)]
     # The kernel computes in f32, as the TPU kernel does, and is held to its
     # plain version run on the same values in f32 (rounded to the working
     # dtype once, at the end). Run in bf16, the plain version rounds its
@@ -468,6 +498,11 @@ def phase_kernels(torch):
                           f"ssd_scan {b}x{s}x{h}x{p}x{n} chunk {chunk} {dn}")
         max_err = max(max_err, err)
         msg = f"max abs err {err:.3e}"
+        if dtype != torch.float32 and p >= 16 and n >= 16:  # the tensor-core kernel
+            rend = check_close(torch, got, ref.ssd_scan_grouped(*args, chunk=chunk), TOL[dn],
+                               f"ssd_scan {b}x{s}x{h}x{p}x{n} chunk {chunk} {dn} "
+                               "vs its rendering")
+            msg += f"; against the grouped hi/lo rendering {rend:.3e}"
         if dtype != torch.float32:
             plain = ref.ssd_scan(*args, chunk=chunk).float()
             diff = (got.float() - plain).abs()
@@ -476,17 +511,41 @@ def phase_kernels(torch):
             msg += (f"; against the plain version run in {dn}: max abs err "
                     f"{float(diff.max()):.3e}, {over} of {diff.numel()} over the tolerance")
         log(f"[kernels] ssd_scan B={b} S={s} H={h} P={p} N={n} chunk={chunk} {dn}: {msg}")
+    # 2, 4 and 8 heads a block, as the plan picks them by batch size, H = 5
+    # not a multiple of them: one chunk, and several with the states of the
+    # block's heads carried in shared memory
+    for b, s, chunk, heads in ((66, 128, 128, 4), (132, 128, 128, 8), (44, 70, 32, 2),
+                               (66, 70, 32, 4)):
+        q = min(chunk, max(s, 8))
+        if _ssd.heads_per_block(b, 5, 64, 64, q, -(-s // q)) != heads:
+            raise AssertionError(f"ssd_scan B={b} S={s} H=5: the plan does not take "
+                                 f"{heads} heads a block")
+        x, dt, a, bm, cm = ssd_inputs(b, s, 5, 64, 64, torch.bfloat16)
+        got = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+        want = ref.ssd_scan(x.float(), dt, a, bm.float(), cm.float(), chunk=chunk)
+        err = check_close(torch, got, want.to(x.dtype), SSD_TOL["bfloat16"],
+                          f"ssd_scan S={s} chunk {chunk} H=5, {heads} heads a block")
+        rend = check_close(torch, got, ref.ssd_scan_grouped(x, dt, a, bm, cm, chunk=chunk),
+                           TOL["bfloat16"], f"ssd_scan S={s} chunk {chunk} H=5, {heads} heads "
+                           "a block vs its rendering")
+        max_err = max(max_err, err)
+        log(f"[kernels] ssd_scan B={b} S={s} H=5 P=N=64 chunk={chunk} bf16, {heads} heads a "
+            f"block: max abs err {err:.3e}; against the grouped hi/lo rendering {rend:.3e}")
     # timed at the serving shape: B=32, prompt bucket 128, bf16
     b, s, h, p, n, chunk = 32, 128, 64, 64, 64, 128
     args = ssd_inputs(b, s, h, p, n, torch.bfloat16)
     ms = device_ms(torch, lambda: ops.ssd_scan(*args, chunk=chunk))
     plain_ms = device_ms(torch, lambda: ref.ssd_scan(*args, chunk=chunk))
     nbytes = 2 * 2 * b * s * h * p + 4 * b * s * h + 2 * 2 * b * s * n + 4 * h
-    flops = 0.0  # per (batch, head): C.B and w.x over k <= q, C.h and the state update
+    # what the function needs, chunk by chunk: C.B^T over k <= q once per
+    # batch row (B and C are shared by the heads); per head w.x over k <= q,
+    # C.h^T where a state enters the chunk, the state update where one leaves
+    flops = 0.0
     for c0 in range(0, s, chunk):
         q = min(chunk, s - c0)
-        flops += 2 * (q * (q + 1) / 2 * (n + p) + 2 * q * p * n)
-    flops *= b * h
+        state = (c0 > 0) + (c0 + chunk < s)
+        flops += 2 * q * (q + 1) / 2 * n + h * 2 * (q * (q + 1) / 2 * p + state * q * p * n)
+    flops *= b
     bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
     rows["ssd_scan"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -495,8 +554,15 @@ def phase_kernels(torch):
         library_ms=None, shape=f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} bf16",
         max_err_vs_bf16_plain=max_err_bf16_plain)
     log(f"[kernels] ssd_scan timed ({rows['ssd_scan']['shape']}): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single library call, "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, no single library call, "
+        f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
+        f"{_ssd.heads_per_block(b, h, p, n, chunk, 1)} heads a block")
+    # prompt bucket 32 (one 32-row chunk) and bucket 1, for the record
+    for bb, ss in ((32, 32), (1, 128)):
+        xs, dts, as_, bms, cms = ssd_inputs(bb, ss, h, p, n, torch.bfloat16)
+        t = device_ms(torch, lambda: ops.ssd_scan(xs, dts, as_, bms, cms, chunk=chunk))
+        log(f"[kernels] ssd_scan timed at B={bb} S={ss} H={h} P={p} N={n} bf16: kernel "
+            f"{t:.5f} ms, {_ssd.heads_per_block(bb, h, p, n, min(chunk, ss), 1)} heads a block")
     return rows
 
 

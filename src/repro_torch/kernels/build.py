@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 alone (no PyTorch headers) into ``build/<name>-<hash>.so``, where the hash
-covers the source and the flags: a changed source builds anew, an
-unchanged one loads what is there. :func:`build` starts one ``nvcc`` per
+covers the source, the shared headers ``csrc/*.cuh`` and the flags: a
+changed source or header builds anew, an unchanged one loads what is there. :func:`build` starts one ``nvcc`` per
 source, all together, and waits for them. The ``.so`` is loaded with
 ``ctypes``; each kernel module declares its own ``argtypes``.
 
@@ -46,6 +46,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared headers a source may include
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -4,15 +4,22 @@ Replaces the TPU kernel ``src/repro/kernels/mlstm_attention.py::
 mlstm_attention_bhsd`` (``_mlstm_kernel``). The CUDA C++ source is
 ``csrc/mlstm_attention.cu``; its header says what bounds the kernel on the
 H100 (bytes: ~134 MB, ~0.040 ms at xLSTM-1.3B's serving shape B=32,
-S=128, H=4, D=1024, bf16, against ~4.3 GFLOP, ~0.004 ms) and how its
-design handles D = 1024 (16-row query tiles; an exact stabiliser from the
-gates, so no running-max rescale).
+S=128, H=4, D=1024, bf16, against ~4.3 GFLOP, ~0.004 ms) and what its two
+designs do: bf16 runs on the tensor cores, 64-row query tiles with the
+output's D split into slices of ``min(D, 128)`` columns across the blocks
+of a thread-block cluster, which sums the slices' partial scores; float32
+keeps the exact CUDA-core kernel. Both take an exact stabiliser from the
+gates, so no running-max rescale.
 
-Like the TPU wrapper, this computes ``F = cumsum(log_f)`` outside the
-kernel. Unlike it, nothing is transposed to ``(B·H, S, D)`` or padded:
+For float32, like the TPU wrapper, this computes ``F = cumsum(log_f)``
+outside the kernel; the bf16 kernel takes ``log_f`` and forms F itself,
+so a bf16 call launches one kernel and nothing else. Unlike the TPU
+wrapper, nothing is transposed to ``(B·H, S, D)`` or padded:
 q/k/v ``(B, S, H, D)`` and the gates ``(B, S, H)`` go in through their
-strides. Model-layout dispatch and the launch count live in
-``kernels/ops.py``.
+strides. The bf16 kernel moves 16 bytes a lane, so the launcher refuses
+bf16 q, k or v whose base pointer or batch, row or head stride is not
+16-byte aligned (the model's projections are). Model-layout dispatch and
+the launch count live in ``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -24,12 +31,14 @@ from repro_torch.kernels import build
 
 NAME = "mlstm_attention"
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256, 512, 1024)
+#: output columns a block of the bf16 kernel takes; D / slice blocks form a cluster
+SLICE = 128
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = [_P] * 6 + [_I] * 5 + [_L] * 18 + [_I, _P]
+_ARGTYPES = [_P] * 7 + [_I] * 5 + [_L] * 21 + [_I, _P]
 
 
 def _lib() -> ctypes.CDLL:
@@ -67,20 +76,28 @@ def mlstm_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         "takes float32 or bfloat16, all alike")
     if log_i.dtype != torch.float32 or log_f.dtype != torch.float32:
         raise TypeError(f"gate dtypes {log_i.dtype}/{log_f.dtype}; the kernel takes float32")
-    for t in (q, k, v, log_i, log_f):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError("mlstm_attention kernel needs all inputs on one CUDA device")
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("the head dim must be contiguous (stride 1)")
-    fcum = torch.cumsum(log_f, dim=1)
+        if t.dtype == torch.bfloat16:
+            build.check_16b_layout(t, (0, 1, 2), "mlstm_attention")
+    for t in (q, k, v, log_i, log_f):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("mlstm_attention kernel needs all inputs on one CUDA device")
+    # float32 reads F = cumsum(log f), bf16 reads log f: the kernel the
+    # dtype picks gets its own and the other pointer is null
+    if q.dtype == torch.float32:
+        fcum = torch.cumsum(log_f, dim=1)
+        fcum_ptr, fcum_st, logf_ptr, logf_st = fcum.data_ptr(), fcum.stride(), None, (0, 0, 0)
+    else:
+        fcum_ptr, fcum_st, logf_ptr, logf_st = None, (0, 0, 0), log_f.data_ptr(), log_f.stride()
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lib = _lib()
     rc = lib.mlstm_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), fcum.data_ptr(), log_i.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), fcum_ptr, logf_ptr, log_i.data_ptr(),
         o.data_ptr(), DTYPE_CODES[q.dtype], b, s, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *fcum.stride(), *log_i.stride(), *o.stride()[:3],
+        *fcum_st, *logf_st, *log_i.stride(), *o.stride()[:3],
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         why = (lib.mlstm_attention_error_string(rc).decode() if rc > 0

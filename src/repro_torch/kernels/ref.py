@@ -59,11 +59,53 @@ def decode_attention_split(q, k_cache, v_cache, cache_len, split_len: int):
     return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
+def _split_bf16(w: torch.Tensor):
+    """f32 ``w`` as bf16 hi = bf16(w) and lo = bf16(w - hi), both returned
+    in f32: the two operands the tensor-core kernels multiply for one f32
+    factor (hi + lo keeps w to ~2^-16 of itself)."""
+    hi = w.to(torch.bfloat16).float()
+    return hi, (w - hi).to(torch.bfloat16).float()
+
+
 def mlstm_attention(q, k, v, log_i, log_f, *, chunk: int = 10**9):
     """Plain version of ops.mlstm_attention (the model's parallel mLSTM)."""
     from repro_torch.models.xlstm import _mlstm_parallel  # the model imports ops
 
     return _mlstm_parallel(q, k, v, log_i, log_f, chunk=chunk)
+
+
+def mlstm_attention_sliced(q, k, v, log_i, log_f, *, slice_cols: int):
+    """The bf16 tensor-core mLSTM kernel's arithmetic, in plain PyTorch
+    (tests and ``chip_smoke.py`` only; the CPU path runs
+    :func:`mlstm_attention`).
+
+    The scores are the sum, in slice order, of partial q·kᵀ products over
+    D-slices of ``min(D, slice_cols)`` columns (bf16 products, f32 sums;
+    the kernel's slice is ``mlstm_attention.SLICE``);
+    the stabiliser m is exact from the gates; w = score / √D · exp(b − m)
+    over j ≤ i, its f32 row sums are the denominator, and w goes into w·v
+    as bf16 hi + lo. Returns y in q's dtype.
+    """
+    b, s, h, d = q.shape
+    ds = min(d, slice_cols)
+    fcum = torch.cumsum(log_f.float(), dim=1)  # (B,S,H)
+    bmat = fcum[:, :, None, :] - fcum[:, None, :, :] + log_i.float()[:, None, :, :]
+    causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+    mask = causal[None, :, :, None]  # (1, i, j, 1)
+    bmat = torch.where(mask, bmat, NEG_INF)
+    m = torch.amax(bmat, dim=2)  # (B,S,H)
+    scores = torch.zeros((b, s, s, h), dtype=torch.float32, device=q.device)
+    for d0 in range(0, d, ds):
+        scores = scores + torch.einsum("bihd,bjhd->bijh", q[..., d0:d0 + ds].float(),
+                                       k[..., d0:d0 + ds].float())
+    w = torch.where(mask, scores * (1.0 / math.sqrt(d)) * torch.exp(bmat - m[:, :, None, :]),
+                    0.0)
+    den = w.sum(dim=2)
+    hi, lo = _split_bf16(w)
+    vf = v.float()
+    num = torch.einsum("bijh,bjhd->bihd", hi, vf) + torch.einsum("bijh,bjhd->bihd", lo, vf)
+    y = num / torch.maximum(den.abs(), torch.exp(-m))[..., None]
+    return y.to(q.dtype)
 
 
 def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
@@ -72,6 +114,58 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
 
     y, _ = ssd_chunked(x, dt, a, b, c, chunk=chunk)
     return y
+
+
+def ssd_scan_grouped(x, dt, a, b, c, *, chunk: int = 128):
+    """The bf16 tensor-core SSD kernel's arithmetic, in plain PyTorch
+    (tests and ``chip_smoke.py`` only; the CPU path runs :func:`ssd_scan`).
+
+    The kernel's chunk ``min(chunk, max(S, 8))``; C·Bᵀ once per (batch row,
+    chunk), shared by the heads (bf16 products, f32 sums); per head the
+    weight w = C·Bᵀ ∘ exp(cum_q − cum_k) ∘ dt_k over k ≤ q, into w·x as bf16
+    hi + lo; the carried state only where it is read: exp(cum_q)·C·hᵀ from
+    the second chunk on, with h as hi + lo, and the update
+    h·exp(total) + xᵀ(B ∘ exp(total − cum) ∘ dt), its right factor as
+    hi + lo, before every chunk but the last. Returns y in x's dtype.
+    """
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, max(s, 8))
+    nc = -(-s // q)
+    pad = nc * q - s
+    f32 = torch.float32
+    xf = F.pad(x.to(f32), (0, 0, 0, 0, 0, pad)).reshape(bs, nc, q, h, p)
+    dtf = F.pad(dt.to(f32), (0, 0, 0, pad)).reshape(bs, nc, q, h)
+    bf = F.pad(b.to(f32), (0, 0, 0, pad)).reshape(bs, nc, q, n)
+    cf = F.pad(c.to(f32), (0, 0, 0, pad)).reshape(bs, nc, q, n)
+    cum = torch.cumsum(dtf * a.to(f32), dim=2)  # (B, nc, Q, H)
+    cbt = torch.einsum("bzqn,bzkn->bzqk", cf, bf)  # once for every head
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    mask = causal[None, None, :, :, None]  # (1, 1, q, k, 1)
+    seg = torch.where(mask, cum[:, :, :, None, :] - cum[:, :, None, :, :], 0.0)
+    w = torch.where(mask, cbt[..., None] * torch.exp(seg) * dtf[:, :, None, :, :], 0.0)
+    hi, lo = _split_bf16(w)  # (B, nc, q, k, H)
+    y = (torch.einsum("bzqkh,bzkhp->bzqhp", hi, xf)
+         + torch.einsum("bzqkh,bzkhp->bzqhp", lo, xf))
+    state = None
+    ys = []
+    for z in range(nc):
+        yz = y[:, z]
+        if z > 0:  # the state entering chunk z
+            s_hi, s_lo = _split_bf16(state)  # (B, H, P, N)
+            off = (torch.einsum("bqn,bhpn->bqhp", cf[:, z], s_hi)
+                   + torch.einsum("bqn,bhpn->bqhp", cf[:, z], s_lo))
+            yz = yz + torch.exp(cum[:, z])[..., None] * off
+        ys.append(yz)
+        if z < nc - 1:
+            total = cum[:, z, -1]  # (B, H)
+            scale = torch.exp(total[:, None, :] - cum[:, z]) * dtf[:, z]  # (B, Q, H)
+            r_hi, r_lo = _split_bf16(bf[:, z][:, :, None, :] * scale[..., None])  # (B,Q,H,N)
+            upd = (torch.einsum("bqhp,bqhn->bhpn", xf[:, z], r_hi)
+                   + torch.einsum("bqhp,bqhn->bhpn", xf[:, z], r_lo))
+            state = upd if z == 0 else state * torch.exp(total)[..., None, None] + upd
+    out = torch.stack(ys, dim=1).reshape(bs, nc * q, h, p)[:, :s]
+    return out.to(x.dtype)
 
 
 def ssd_scan_sequential(x, dt, a, b, c):

@@ -3,12 +3,18 @@
 On the CPU the port's ``ops`` wrappers run their plain PyTorch versions;
 they are held to the JAX package's Pallas kernels run in interpret mode,
 on the same numpy inputs (f32 to 2e-5, bf16 to 2e-2, the tolerances of
-``tests/test_kernels.py``). ``tests/test_torch_kernels_cuda.py`` holds
-the hand-written kernels to their plain versions on the card.
+``tests/test_kernels.py``; the mLSTM twice that, the SSD scan four times).
+The plain renderings of the tensor-core kernels' arithmetic
+(``ref.decode_attention_split``, ``ref.mlstm_attention_sliced``,
+``ref.ssd_scan_grouped``) are held to the same Pallas kernels and to the
+plain versions. ``tests/test_torch_kernels_cuda.py`` holds the
+hand-written kernels to their plain versions on the card.
 """
 import dataclasses
+import functools
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +31,12 @@ from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models.model import Model
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MLSTM_TOL = {k: 2 * v for k, v in TOL.items()}  # the signed denominator amplifies rounding
+SSD_TOL = {k: 4 * v for k, v in TOL.items()}  # long products of decays amplify rounding
+#: a rendering fed f32 copies of bf16 inputs keeps its f32 result: with each
+#: f32 weight as bf16 hi + lo it stays this close to the plain f32 version
+#: (one bf16 rounding of the weights would be off by ~2^-9 of them)
+SPLIT_TOL = 1e-4
 
 
 def _inputs(seed, shapes, dtype):
@@ -219,17 +231,62 @@ def test_launchers_refuse_misaligned_vector_layouts():
         tdec.decode_attention_fwd(q1, k16, k16, lens, split_len=1)
     with pytest.raises(ValueError, match="CUDA"):  # aligned: only the device is wrong
         tdec.decode_attention_fwd(q1, k, k, lens)
+    # the bf16 mLSTM kernel moves 16 bytes a lane too; float32 reads scalars
+    mq = torch.zeros((1, 8, 2, 32), dtype=bf)
+    mg = torch.zeros((1, 8, 2))
+    m_shifted = torch.zeros(8 * 2 * 32 + 1, dtype=bf)[1:].view(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="base pointer"):
+        tml.mlstm_attention_fwd(m_shifted, mq, mq, mg, mg)
+    m_odd_heads = torch.zeros((1, 8, 2, 36), dtype=bf)[..., :32]  # head stride 72 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        tml.mlstm_attention_fwd(mq, mq, m_odd_heads, mg, mg)
+    m_odd_rows = torch.zeros((1, 8, 2 * 32 + 4), dtype=bf)[..., :64].view(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tml.mlstm_attention_fwd(mq, m_odd_rows, mq, mg, mg)
+    with pytest.raises(ValueError, match="CUDA"):
+        tml.mlstm_attention_fwd(m_odd_heads.float(), mq.float(), mq.float(), mg, mg)
+    with pytest.raises(ValueError, match="CUDA"):  # aligned: only the device is wrong
+        tml.mlstm_attention_fwd(mq, mq, mq, mg, mg)
+    # and the bf16 SSD kernel at P, N >= 16: x, B and C as views of a conv output
+    sdt, sa = torch.zeros((1, 8, 2)), torch.zeros(2)
+    conv = torch.zeros((1, 8, 2 * 16 + 2 * 16), dtype=bf)
+    sx, sb, sc = conv[..., :32].view(1, 8, 2, 16), conv[..., 32:48], conv[..., 48:]
+    with pytest.raises(ValueError, match="CUDA"):  # aligned: only the device is wrong
+        tssd.ssd_scan_fwd(sx, sdt, sa, sb, sc)
+    s_shifted = torch.zeros(8 * 2 * 16 + 1, dtype=bf)[1:].view(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="base pointer"):
+        tssd.ssd_scan_fwd(s_shifted, sdt, sa, sb, sc)
+    s_odd_heads = torch.zeros((1, 8, 2, 20), dtype=bf)[..., :16]  # head stride 40 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        tssd.ssd_scan_fwd(s_odd_heads, sdt, sa, sb, sc)
+    odd_conv = torch.zeros((1, 8, 2 * 16 + 2 * 16 + 4), dtype=bf)  # rows of 136 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        tssd.ssd_scan_fwd(sx, sdt, sa, odd_conv[..., 32:48], sc)
+    with pytest.raises(ValueError, match="base pointer"):  # C starts 2 bytes into a row
+        tssd.ssd_scan_fwd(sx, sdt, sa, sb, conv[..., 47:63])
+    p8 = torch.zeros((1, 8, 2, 9), dtype=bf)[..., :8]  # P = 8: the CUDA-core kernel, scalars
+    with pytest.raises(ValueError, match="CUDA"):
+        tssd.ssd_scan_fwd(p8, sdt, sa, sb, sc)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "zamba2-1.2b"])
+#: the kernels each model's prefill and decode step launch
+MODEL_KERNELS = {"qwen2-0.5b": ("flash", "decode"), "zamba2-1.2b": ("flash", "decode", "ssd"),
+                 "xlstm-1.3b": ("mlstm",)}
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "zamba2-1.2b", "xlstm-1.3b"])
 def test_model_attention_inputs_meet_the_kernels_layout_rules(arch, monkeypatch):
     """The tensors the reduced models (in bf16, as served) hand to
-    ``ops.flash_attention`` and ``ops.decode_attention`` pass every check
-    of the kernels' launchers: on the CPU only the device check is left."""
+    ``ops.flash_attention``, ``ops.decode_attention``,
+    ``ops.mlstm_attention`` and ``ops.ssd_scan`` pass every check of the
+    kernels' launchers (the 16-byte layout rules of the tensor-core paths
+    included): on the CPU only the device check is left."""
+    kernels = MODEL_KERNELS[arch]
     cfg = dataclasses.replace(tget_config(arch).reduced(), param_dtype="bfloat16",
                               compute_dtype="bfloat16")
     flash, decode = tops.flash_attention, tops.decode_attention
-    seen = {"flash": 0, "decode": 0}
+    mlstm, ssd = tops.mlstm_attention, tops.ssd_scan
+    seen = {"flash": 0, "decode": 0, "mlstm": 0, "ssd": 0}
 
     def flash_checked(q, k, v, *, causal=True):
         with pytest.raises(ValueError, match="CUDA"):
@@ -244,12 +301,124 @@ def test_model_attention_inputs_meet_the_kernels_layout_rules(arch, monkeypatch)
         seen["decode"] += 1
         return decode(q, k_cache, v_cache, cache_len)
 
+    def mlstm_checked(q, k, v, log_i, log_f, *, chunk=512):
+        assert q.dtype == torch.bfloat16  # the tensor-core path
+        with pytest.raises(ValueError, match="CUDA"):
+            tml.mlstm_attention_fwd(q, k, v, log_i, log_f)
+        seen["mlstm"] += 1
+        return mlstm(q, k, v, log_i, log_f, chunk=chunk)
+
+    def ssd_checked(x, dt, a, b, c, *, chunk=128):
+        assert tssd.uses_tensor_cores(x.dtype, x.shape[-1], b.shape[-1])
+        with pytest.raises(ValueError, match="CUDA"):
+            tssd.ssd_scan_fwd(x, dt, a, b, c, chunk=chunk)
+        seen["ssd"] += 1
+        return ssd(x, dt, a, b, c, chunk=chunk)
+
     monkeypatch.setattr(tops, "flash_attention", flash_checked)
     monkeypatch.setattr(tops, "decode_attention", decode_checked)
+    monkeypatch.setattr(tops, "mlstm_attention", mlstm_checked)
+    monkeypatch.setattr(tops, "ssd_scan", ssd_checked)
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
     prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)))
     cache = model.init_cache(2, 16)
     logits, cache = model.prefill(params, prompt, cache)
     model.decode_step(params, logits.argmax(-1)[:, -1:], cache)
-    assert seen["flash"] == seen["decode"] > 0
+    assert all(seen[name] > 0 for name in kernels)
+    assert not any(seen[name] for name in seen if name not in kernels)
+    if "decode" in kernels:
+        assert seen["flash"] == seen["decode"]
+
+
+def _mlstm_np(seed, b, s, h, d):
+    rng = np.random.default_rng(seed)
+    qkv = [rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3)]
+    log_i = (rng.standard_normal((b, s, h)) * 0.5).astype(np.float32)
+    log_f = np.log(1.0 / (1.0 + np.exp(-(rng.standard_normal((b, s, h)) + 2.0))))
+    return qkv, log_i, log_f.astype(np.float32)
+
+
+@pytest.mark.parametrize("b,s,h,d,slice_cols", [
+    (1, 1, 2, 64, 128),   # one row
+    (2, 70, 2, 32, 128),  # S not a multiple of the 64-row query tile; D below one slice
+    (1, 40, 2, 64, 16),   # four D-slices
+])
+def test_mlstm_rendering_matches_jax_kernel_and_plain(b, s, h, d, slice_cols):
+    """The bf16 mLSTM kernel's arithmetic (D-sliced partial scores summed,
+    w as bf16 hi + lo, the exact stabiliser) against the Pallas kernel in
+    interpret mode and the plain version in f32."""
+    (q, k, v), log_i, log_f = _mlstm_np(s + d, b, s, h, d)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    ti, tf = torch.from_numpy(log_i), torch.from_numpy(log_f)
+    got = tref.mlstm_attention_sliced(tq, tk, tv, ti, tf, slice_cols=slice_cols)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    kernel = jops.mlstm_attention(jq, jk, jv, jnp.asarray(log_i), jnp.asarray(log_f),
+                                  block_q=32, block_k=32, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(kernel, np.float32),
+                               atol=MLSTM_TOL["bfloat16"], rtol=MLSTM_TOL["bfloat16"])
+    f32 = [t.float() for t in (tq, tk, tv)]
+    plain = tref.mlstm_attention(*f32, ti, tf)
+    torch.testing.assert_close(got.float(), plain, atol=MLSTM_TOL["bfloat16"],
+                               rtol=MLSTM_TOL["bfloat16"])
+    unrounded = tref.mlstm_attention_sliced(*f32, ti, tf, slice_cols=slice_cols)
+    torch.testing.assert_close(unrounded, plain, atol=SPLIT_TOL, rtol=SPLIT_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 1, 2, 16, 16, 128),    # one row
+    (2, 100, 3, 16, 32, 32),   # ragged S over four chunks: the carried state
+    (1, 40, 2, 32, 16, 128),   # one ragged chunk: no state term at all
+])
+def test_ssd_rendering_matches_jax_kernel_and_plain(b, s, h, p, n, chunk):
+    """The bf16 SSD kernel's arithmetic (C·Bᵀ per group, w as bf16 hi + lo,
+    state terms only where read) against the Pallas kernel in interpret
+    mode and the plain version in f32."""
+    rng = np.random.default_rng(s * 10 + h)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a = -np.exp(rng.standard_normal(h) * 0.3).astype(np.float32)
+    bb, cc = (rng.standard_normal((b, s, n)).astype(np.float32) for _ in range(2))
+    tx, tb, tc = (torch.from_numpy(t).to(torch.bfloat16) for t in (x, bb, cc))
+    tdt, ta = torch.from_numpy(dt), torch.from_numpy(a)
+    got = tref.ssd_scan_grouped(tx, tdt, ta, tb, tc, chunk=chunk)
+    assert got.dtype == torch.bfloat16 and got.shape == tx.shape
+    jx, jb, jc = (jnp.asarray(t).astype(jnp.bfloat16) for t in (x, bb, cc))
+    kernel = jax.jit(functools.partial(jops.ssd_scan, chunk=chunk, interpret=True))
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        np.asarray(kernel(jx, jnp.asarray(dt), jnp.asarray(a), jb, jc), np.float32),
+        atol=SSD_TOL["bfloat16"], rtol=SSD_TOL["bfloat16"])
+    f32 = [t.float() for t in (tx, tb, tc)]
+    plain = tref.ssd_scan(f32[0], tdt, ta, f32[1], f32[2], chunk=chunk)
+    torch.testing.assert_close(got.float(), plain, atol=SSD_TOL["bfloat16"],
+                               rtol=SSD_TOL["bfloat16"])
+    unrounded = tref.ssd_scan_grouped(f32[0], tdt, ta, f32[1], f32[2], chunk=chunk)
+    torch.testing.assert_close(unrounded, plain, atol=SPLIT_TOL, rtol=SPLIT_TOL)
+
+
+@pytest.mark.parametrize("batch,heads,p,n,s", [
+    (32, 64, 64, 64, 128), (1, 64, 64, 64, 128),  # Zamba2's buckets 32 and 1
+    (32, 64, 64, 64, 32), (2, 5, 64, 64, 300), (4, 8, 128, 128, 1000), (300, 3, 16, 16, 40),
+])
+def test_ssd_heads_a_block_fit_and_fill_the_card(batch, heads, p, n, s):
+    assert list(inspect.signature(tssd.heads_per_block).parameters) == [
+        "batch", "heads", "p", "n", "q", "n_chunks"]
+    q = min(128, max(s, 8))
+    n_chunks = -(-s // q)
+    g = tssd.heads_per_block(batch, heads, p, n, q, n_chunks)
+    assert g in tssd.HEADS_PER_BLOCK
+    assert tssd.mma_smem_bytes(p, n, q, g, 1, n_chunks > 1) <= tssd.MAX_SMEM
+    if g > 1:  # more heads a block only while every SM still gets a block
+        assert batch * -(-heads // g) >= tssd.TARGET_BLOCKS
+    # the largest tile with a carried state fits with one x buffer and one head
+    assert tssd.mma_smem_bytes(128, 128, 128, 1, 1, True) <= tssd.MAX_SMEM
+
+
+def test_ssd_heads_a_block_at_the_serving_shapes():
+    assert tssd.heads_per_block(32, 64, 64, 64, 128, 1) == 8  # 256 blocks, C·Bᵀ once for 8
+    assert tssd.heads_per_block(1, 64, 64, 64, 128, 1) == 1   # bucket 1: 64 blocks
+    assert not tssd.uses_tensor_cores(torch.float32, 64, 64)
+    assert not tssd.uses_tensor_cores(torch.bfloat16, 8, 64)
+    assert tssd.uses_tensor_cores(torch.bfloat16, 16, 128)

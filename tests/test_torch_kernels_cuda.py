@@ -10,8 +10,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import mlstm_attention as tml
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tssd
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MLSTM_TOL = {k: 2 * v for k, v in TOL.items()}  # the signed denominator amplifies rounding
@@ -36,6 +38,27 @@ def _ssd_plain_f32(x, dt, a, b, c, chunk):
     first (as the JAX model's ``ssd_chunked`` does), an error larger than
     the kernel's own."""
     return tref.ssd_scan(x.float(), dt, a, b.float(), c.float(), chunk=chunk).to(x.dtype)
+
+
+def _mlstm_gates(seed, b, s, h, device):
+    rng = np.random.default_rng(seed)
+    log_i = torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32) * 0.5)
+    f_pre = torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32) + 2.0)
+    return log_i.to(device), torch.nn.functional.logsigmoid(f_pre).to(device)
+
+
+def _ssd_views(seed, b, s, h, p, n, dtype, device):
+    """x, dt, a, B and C as the model hands them over: x, B and C views of
+    one conv output (B, S, H·P + 2N)."""
+    rng = np.random.default_rng(seed)
+    conv = torch.from_numpy(rng.standard_normal((b, s, h * p + 2 * n)).astype(np.float32))
+    conv = conv.to(getattr(torch, dtype)).to(device)
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    bb, cc = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32))).to(device)
+    a = -torch.linspace(1.0, 16.0, h, device=device)
+    return x, dt, a, bb, cc
 
 
 @pytest.fixture
@@ -177,6 +200,58 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         assert tops.launches()["ssd_scan"] == 1
         _close(got, want, dtype, SSD_TOL)
+
+    @pytest.mark.parametrize("s", [1, 17, 128, 200, 257])
+    @pytest.mark.parametrize("d", [32, 64, 128, 256, 512, 1024])
+    def test_mlstm_kernel_bf16_edges(self, cuda, s, d):
+        """The tensor-core kernel at its edges and every D it dispatches:
+        one row, ragged and several 64-row query tiles, one D-slice (32, 64,
+        128) and clusters of two, four and eight (256, 512, 1024); held to
+        the plain version and to its own arithmetic rendered plainly
+        (D-sliced scores, w as bf16 hi + lo)."""
+        b, h = 2, 2
+        q, k, v = (t.to(cuda) for t in _inputs(s + d, [(b, s, h, d)] * 3, "bfloat16"))
+        log_i, log_f = _mlstm_gates(s * d, b, s, h, cuda)
+        tops.reset_launches()
+        got = tops.mlstm_attention(q, k, v, log_i, log_f)
+        torch.cuda.synchronize()
+        assert tops.launches()["mlstm_attention"] == 1
+        _close(got, tref.mlstm_attention(q, k, v, log_i, log_f), "bfloat16", MLSTM_TOL)
+        _close(got, tref.mlstm_attention_sliced(q, k, v, log_i, log_f, slice_cols=tml.SLICE),
+               "bfloat16")
+
+    @pytest.mark.parametrize("pn", [16, 64, 128])
+    @pytest.mark.parametrize("chunk", [32, 128])
+    def test_ssd_kernel_bf16_edges(self, cuda, pn, chunk):
+        """The tensor-core kernel at P = N in {16, 64, 128}, chunks 32 and
+        128: one row, ragged S in one chunk and in several, x/B/C as strided
+        views of one conv output; held to the plain version in f32 and to
+        its own arithmetic rendered plainly (C·Bᵀ per group, w as hi + lo)."""
+        for s in (1, 70, 300):
+            x, dt, a, bb, cc = _ssd_views(s + pn, 2, s, 3, pn, pn, "bfloat16", cuda)
+            tops.reset_launches()
+            got = tops.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+            torch.cuda.synchronize()
+            assert tops.launches()["ssd_scan"] == 1
+            _close(got, _ssd_plain_f32(x, dt, a, bb, cc, chunk), "bfloat16", SSD_TOL)
+            _close(got, tref.ssd_scan_grouped(x, dt, a, bb, cc, chunk=chunk), "bfloat16")
+
+    @pytest.mark.parametrize("b,s,chunk,heads", [(66, 128, 128, 4), (132, 128, 128, 8),
+                                                 (44, 70, 32, 2), (66, 70, 32, 4),
+                                                 (2, 300, 128, 1)])
+    def test_ssd_kernel_heads_a_block(self, cuda, b, s, chunk, heads):
+        """1, 2, 4 and 8 heads a block, as the plan picks them by batch size,
+        H = 5 not a multiple of them: one chunk, and several with the
+        block's heads' states carried in shared memory."""
+        q = min(chunk, max(s, 8))
+        assert tssd.heads_per_block(b, 5, 64, 64, q, -(-s // q)) == heads
+        x, dt, a, bb, cc = _ssd_views(heads, b, s, 5, 64, 64, "bfloat16", cuda)
+        tops.reset_launches()
+        got = tops.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+        torch.cuda.synchronize()
+        assert tops.launches()["ssd_scan"] == 1
+        _close(got, _ssd_plain_f32(x, dt, a, bb, cc, chunk), "bfloat16", SSD_TOL)
+        _close(got, tref.ssd_scan_grouped(x, dt, a, bb, cc, chunk=chunk), "bfloat16")
 
     def test_ssd_kernel_reads_strided_views(self, cuda):
         """x, B and C as the model hands them over: views of one conv output."""
