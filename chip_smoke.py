@@ -30,15 +30,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same port on the CPU (plain versions), to 1e-4.
 5. Serving, one model after the other, each in bf16 with random weights
    from a seed, behind MLProxy (``repro_torch.launch.serve``): full-width
-   qwen2-0.5b, full-width xlstm-1.3b, then full-width zamba2-1.2b. Every
-   request must come back with its tokens; each model's kernels must have
-   run once per layer (for Zamba2, once per Mamba layer and once per
-   shared-block application) for every prefill and, for the attention
-   models, every decode step; the fused decode loop must give the
-   per-token loop's tokens; and a pooled cache must give a batch the tokens
-   a fresh cache gives it. Each model's launch counts are set to 0 just
-   before its serving run and read just after; the ``kernels`` line sums
-   them over the three runs.
+   qwen2-0.5b, full-width xlstm-1.3b, then full-width zamba2-1.2b. The
+   rate and SLO come from the median of five timed (2, 128) batches.
+   Each model is served twice: directly, on one always-warm replica
+   (``run_proxy_loop``; every request must come back with its tokens),
+   then on the simulated serverless platform (``build_simulator``: cold
+   starts, scaling, cost), every batch executed on the card; every
+   arrival must complete with an average batch above 1. qwen2-0.5b is
+   also served under the passthrough policy, the paper's baseline, and
+   its cost and violations are printed beside MLProxy's. Each serving run
+   sets the launch counts to 0 just before it and reads them just after:
+   each model's kernels must have run once per layer (for Zamba2, once per
+   Mamba layer and once per shared-block application) for every prefill
+   and, for the attention models, every decode step; the ``kernels`` line
+   sums them over the runs. Then: the fused decode loop must give the
+   per-token loop's tokens; a pooled cache must give a batch the tokens a
+   fresh cache gives it; and, for qwen2-0.5b, a decode past ``max_len``
+   must give tokens with no device assert, and one replica's
+   ``generate()`` must not wait for another replica's stream.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -66,7 +75,12 @@ MODEL_TOL = 1e-4
 #: library -> name prefix of its bf16 tensor-core instantiations
 TENSOR_CORE_KERNELS = {"flash_attention": "flash_mma_kernel",
                        "mlstm_attention": "mlstm_mma_kernel", "ssd_scan": "ssd_mma_kernel"}
-SERVE_REQUESTS = {"qwen2-0.5b": 300, "xlstm-1.3b": 100, "zamba2-1.2b": 300}
+#: arrivals of each simulated-platform run (duration = arrivals / rate)
+SIM_ARRIVALS = {"qwen2-0.5b": 300, "xlstm-1.3b": 100, "zamba2-1.2b": 300}
+#: requests of each direct (one warm replica, no platform) run
+DIRECT_REQUESTS = {"qwen2-0.5b": 60, "xlstm-1.3b": 30, "zamba2-1.2b": 60}
+#: the model also served under the passthrough policy (the paper's baseline)
+PASSTHROUGH_ARCH, PASSTHROUGH_ARRIVALS = "qwen2-0.5b", 100
 
 
 def log(msg: str) -> None:
@@ -634,19 +648,51 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+def counted_run(torch, engine, fn):
+    """Run ``fn()`` (one serving path over ``engine``) with every kernel's
+    launch count set to 0 just before and read just after; fail unless
+    the path made prefills and decode steps and launched each kernel
+    exactly as often as those prefills and steps need. Returns (fn's
+    result, launches, wall seconds, prefills, decode steps)."""
+    from repro_torch.kernels import ops
+
+    prefills0, steps0 = engine.prefill_calls, engine.decode_steps
+    ops.reset_launches()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launches()
+    prefills = engine.prefill_calls - prefills0
+    steps = engine.decode_steps - steps0
+    if prefills == 0 or steps == 0:
+        raise AssertionError("the serving run made no prefill or no decode step")
+    want = expected_launches(engine.cfg, prefills, steps)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want} for {prefills} "
+                             f"prefills and {steps} decode steps")
+    return out, launches, wall, prefills, steps
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():  # summed: two models launch the attention kernels
+        total[name] = total.get(name, 0) + n
+
+
 def phase_serve(torch, arch: str) -> dict:
-    """Serve full-width ``arch`` behind MLProxy; returns the kernel launch
-    counts of the serving run alone."""
+    """Serve full-width ``arch`` behind MLProxy, first directly on one
+    replica (``run_proxy_loop``), then on the simulated serverless platform
+    (``launch/serve.py``'s ``Simulator``); for qwen2-0.5b also under the
+    passthrough policy, and the replica-stream and max_len checks. Returns
+    the kernel launch counts of the serving runs alone, summed."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.core.config import OptimizerConfig
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.serving.engine import InferenceEngine, ReplicaPool
 
     cfg = get_config(arch)
-    n_requests = SERVE_REQUESTS[arch]
     # batch buckets 1..32, prompt buckets 32/128, max_len 144, 16 tokens
     ecfg = serve.engine_config(full_size=True, gen_len=16)
     torch.cuda.reset_peak_memory_stats()
@@ -661,34 +707,30 @@ def phase_serve(torch, arch: str) -> dict:
     log(f"[serve] warmup of {len(warm)} (bucket, prompt) pairs in "
         f"{time.monotonic() - t0:.1f} s; second-run ms: "
         + ", ".join(f"{k}: {1e3 * v:.1f}" for k, v in sorted(warm.items())))
-
-    rate, slo_s = serve.offered_load(warm, prompt_bucket=128)
-    log(f"[serve] {n_requests} requests of 128 tokens at {rate:.3f}/s (virtual), "
-        f"SLO {1e3 * slo_s:.1f} ms, {ecfg.gen_len} tokens each")
     engine = pool.replicas[0]
-    prefills0, steps0 = engine.prefill_calls, engine.decode_steps
-    ops.reset_launches()
-    t0 = time.monotonic()
-    result = serve.run_proxy_loop(
-        pool, n_requests=n_requests, rate=rate, prompt_len=128, seed=0,
-        slo_s=slo_s, optimizer=OptimizerConfig(update_interval=5.0, initial_max_bs=2),
-        bucketing="pow2")
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = ops.launches()
-    prefills = engine.prefill_calls - prefills0
-    steps = engine.decode_steps - steps0
+    samples = serve.time_samples(engine, 128)
+    rate, slo_s = serve.offered_load(samples)
+    log("[serve] offered load from the median of (2, 128) samples, ms: "
+        + ", ".join(f"{1e3 * t:.1f}" for t in samples)
+        + f" -> rate {rate:.3f}/s (virtual), SLO {1e3 * slo_s:.1f} ms")
+    launches: dict = {}
 
+    # the direct path: one always-warm replica behind ReplicaPoolTarget
+    n_requests = DIRECT_REQUESTS[arch]
+    result, counts, wall, prefills, steps = counted_run(
+        torch, engine, lambda: serve.run_proxy_loop(
+            pool, n_requests=n_requests, rate=rate, prompt_len=128, seed=0,
+            slo_s=slo_s, optimizer=OptimizerConfig(update_interval=5.0, initial_max_bs=2),
+            bucketing="pow2"))
+    add_counts(launches, counts)
     summary = serve.summarize(result)
     stats = result["stats"]
-    log(f"[serve] {summary['requests']} requests in {summary['batches']} batches, "
+    log(f"[serve] direct: {summary['requests']} requests in {summary['batches']} batches, "
         f"avg batch {summary['avg_batch']:.2f}, p95 {1e3 * summary['p95_s']:.1f} ms "
-        f"(virtual time), violation rate {stats['violation_rate']:.4f}, "
-        f"wall {wall:.1f} s")
-    log("[serve] measured ms per batch bucket: "
+        f"(virtual time), violation rate {stats['violation_rate']:.4f}, wall {wall:.1f} s; "
+        "measured ms per batch bucket: "
         + ", ".join(f"{b}: {ms:.2f}" for b, ms in summary["ms_per_bucket"].items()))
-    log(f"[serve] {prefills} prefills, {steps} decode steps; kernel launches {launches}")
-
+    log(f"[serve] direct: {prefills} prefills, {steps} decode steps; kernel launches {counts}")
     if summary["completed"] != n_requests or stats["dispatched_requests"] != n_requests:
         raise AssertionError(f"submitted {n_requests}, completed {summary['completed']}, "
                              f"dispatched {stats['dispatched_requests']}")
@@ -698,12 +740,42 @@ def phase_serve(torch, arch: str) -> dict:
             raise AssertionError(f"request {r.req_id}: bad tokens {toks!r}")
     if not summary["avg_batch"] > 1.0:
         raise AssertionError(f"MLProxy formed no batches above 1 (avg {summary['avg_batch']})")
-    if prefills == 0 or steps == 0:
-        raise AssertionError("the serving run made no prefill or no decode step")
-    want = expected_launches(cfg, prefills, steps)
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want} for {prefills} "
-                             f"prefills and {steps} decode steps")
+
+    # the paper's setting: the simulated serverless platform, each batch
+    # executed on the card
+    policies = [("mlproxy", SIM_ARRIVALS[arch])]
+    if arch == PASSTHROUGH_ARCH:
+        policies.append(("passthrough", PASSTHROUGH_ARRIVALS))
+    sims = {}
+    for policy, n_arrivals in policies:
+        sim = serve.build_simulator(engine, rate=rate, duration=n_arrivals / rate,
+                                    slo_s=slo_s, prompt_len=128, gen_len=ecfg.gen_len,
+                                    timings=warm, policy=policy, seed=0)
+        batches0 = engine.stats["batches"]
+        res, counts, wall, prefills, steps = counted_run(torch, engine, sim.run)
+        add_counts(launches, counts)
+        s = res.summary
+        sims[policy] = s
+        log(f"[sim] {cfg.name} {policy}, {n_arrivals / rate:.1f} s of arrivals: "
+            f"{serve.sim_line(s)}; {engine.stats['batches'] - batches0:.0f} engine batches, "
+            f"{prefills} prefills, {steps} decode steps, wall {wall:.1f} s; "
+            f"kernel launches {counts}")
+        if not s["submitted_requests"] or s["completed"] != s["submitted_requests"]:
+            raise AssertionError(f"{policy}: {s['submitted_requests']:.0f} arrivals, "
+                                 f"{s['completed']:.0f} completed")
+        if s["lost_batches"] or s["outstanding_batches"] or s["duplicate_completions"]:
+            raise AssertionError(f"{policy}: the platform's ledger does not balance: {s}")
+        if policy == "mlproxy" and not s["avg_batch_size"] > 1.0:
+            raise AssertionError(f"MLProxy formed no batches above 1 on the platform "
+                                 f"(avg {s['avg_batch_size']})")
+    if "passthrough" in sims:
+        m, pt = sims["mlproxy"], sims["passthrough"]
+        log(f"[sim] {cfg.name} MLProxy vs passthrough: cost_integral {m['cost_integral']:.2f} "
+            f"vs {pt['cost_integral']:.2f} container-s, violations "
+            f"{m['violation_pct']:.2f}% vs {pt['violation_pct']:.2f}%, p95 "
+            f"{1e3 * m['p95']:.1f} vs {1e3 * pt['p95']:.1f} ms, cold starts "
+            f"{m['cold_starts']:.0f} vs {pt['cold_starts']:.0f} "
+            f"({m['submitted_requests']:.0f} and {pt['submitted_requests']:.0f} arrivals)")
 
     # full width: the fused loop and the per-token loop give the same tokens
     ref_engine = InferenceEngine(cfg, dataclasses.replace(ecfg, fused_decode=False),
@@ -728,13 +800,86 @@ def phase_serve(torch, arch: str) -> dict:
         raise AssertionError("a pooled cache changed the next batch's tokens")
     log("[serve] pooled cache == fresh cache for a batch after a different batch")
     del fresh
+    if arch == PASSTHROUGH_ARCH:
+        check_max_len_overflow(torch, engine)
+        check_replica_streams(torch, engine)
     log(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
         f"(torch.cuda.max_memory_allocated, this phase)")
     profile_generate(torch, engine, cfg)
-    del pool, engine
+    # the simulator holds the engine through its latency model, in a
+    # reference cycle: only a collection frees the model's memory
+    del pool, engine, sim
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def check_max_len_overflow(torch, engine) -> None:
+    """plen + gen_len - 1 > max_len at full width: the engine decodes past
+    its cache's end as the JAX engine does (the write clamped onto the last
+    row), with no device-side assert; until the cache is full it gives the
+    tokens of an engine with room, and its fused and per-token loops agree."""
+    import numpy as np
+
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg, ecfg = engine.cfg, engine.ecfg
+    plen, gen = 128, ecfg.gen_len
+    short = dataclasses.replace(ecfg, max_len=plen + gen // 2)  # 143 > 136
+    over = InferenceEngine(cfg, short, params=engine.params, device="cuda")
+    per_token = InferenceEngine(cfg, dataclasses.replace(short, fused_decode=False),
+                                params=engine.params, device="cuda")
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, plen)).astype(np.int32)
+    got, _ = over.generate(prompts)
+    torch.cuda.synchronize()  # a device-side assert would surface here
+    room, _ = engine.generate(prompts)
+    same = short.max_len - plen + 1  # tokens decoded before the cache is full
+    if got.shape != (2, gen) or got.min() < 0 or got.max() >= cfg.vocab_size:
+        raise AssertionError(f"max_len overflow: bad tokens {got!r}")
+    if not np.array_equal(got[:, :same], room[:, :same]):
+        raise AssertionError(f"max_len overflow: the first {same} tokens differ from an "
+                             f"engine with room: {got} vs {room}")
+    if not np.array_equal(per_token.generate(prompts)[0], got):
+        raise AssertionError("max_len overflow: fused and per-token decode disagree")
+    log(f"[serve] max_len {short.max_len} < plen + gen_len - 1 = {plen + gen - 1}: tokens "
+        f"and no device assert; the first {same} equal an engine with room's, fused == "
+        "per-token")
+
+
+def check_replica_streams(torch, engine) -> None:
+    """Two replicas on one card overlap: with replica 0's stream held by a
+    ~2 s sleep kernel, replica 1's generate() returns well before it ends,
+    with the tokens it gives alone."""
+    import numpy as np
+
+    from repro_torch.serving.engine import ReplicaPool
+
+    pool = ReplicaPool(engine.cfg, engine.ecfg, n_replicas=2, params=engine.params,
+                       device="cuda")
+    r0, r1 = pool.replicas
+    prompts = np.random.default_rng(5).integers(0, engine.cfg.vocab_size,
+                                                (2, 128)).astype(np.int32)
+    r1.generate(prompts)
+    alone, _ = r1.generate(prompts)
+    sleep_ms = 2000.0
+    cycles = int(sleep_ms * 1e8 / device_ms(torch, lambda: torch.cuda._sleep(100_000_000),
+                                            samples=3))
+    with torch.cuda.stream(r0.stream):
+        torch.cuda._sleep(cycles)
+    t0 = time.monotonic()
+    got, timing = r1.generate(prompts)
+    returned_s = time.monotonic() - t0
+    held = not r0.stream.query()
+    r0.stream.synchronize()
+    held_s = time.monotonic() - t0
+    log(f"[serve] replica streams: replica 1's generate() took {1e3 * returned_s:.1f} ms "
+        f"(measured {1e3 * timing['latency_s']:.1f} ms) while replica 0's stream held a "
+        f"{sleep_ms:.0f} ms sleep (done after {1e3 * held_s:.1f} ms)")
+    if not held or returned_s > 0.5 * sleep_ms / 1e3:
+        raise AssertionError(f"replica 1 waited for replica 0's stream ({returned_s:.3f} s, "
+                             f"replica 0 still busy: {held})")
+    if not np.array_equal(got, alone):
+        raise AssertionError("replica 1 gave other tokens beside a busy replica 0")
 
 
 def profile_generate(torch, engine, cfg) -> None:
@@ -808,14 +953,12 @@ def main() -> int:
 
     phase_build()
     rows = phase_kernels(torch)
-    for arch in SERVE_REQUESTS:
+    for arch in SIM_ARRIVALS:
         phase_model(torch, arch)
     launches = {name: 0 for name in rows}
-    for arch in SERVE_REQUESTS:  # each run counts only its own model's kernels
+    for arch in SIM_ARRIVALS:  # each run counts only its own model's kernels
         t0 = time.monotonic()
-        counts = phase_serve(torch, arch)
-        for name, n in counts.items():  # summed: two models launch the attention kernels
-            launches[name] = launches.get(name, 0) + n
+        add_counts(launches, phase_serve(torch, arch))
         log(f"[serve] {arch} phase {time.monotonic() - t0:.1f} s")
     missing = [name for name in rows if not launches.get(name)]
     if missing:

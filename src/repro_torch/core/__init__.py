@@ -2,8 +2,9 @@
 
 The modules here are verbatim copies of ``core/`` in the JAX package,
 with only their imports pointed at this package, so the port imports
-nothing of it. The multi-endpoint frontend and the baseline policies are
-not copied yet.
+nothing of it: the queue layer (``BatchQueue``, ``Policy``), the policy
+layer (``MLProxy`` and the baselines of ``core/policies.py``) and the
+routing layer (``ProxyFrontend``).
 """
 from repro_torch.core.batch_queue import BatchQueue, Policy  # noqa: F401
 from repro_torch.core.config import (  # noqa: F401
@@ -14,6 +15,7 @@ from repro_torch.core.config import (  # noqa: F401
     bucket_of,
     ms,
 )
+from repro_torch.core.frontend import Endpoint, ProxyFrontend  # noqa: F401
 from repro_torch.core.monitor import LatencyWindow, P2Quantile, SmartMonitor  # noqa: F401
 from repro_torch.core.optimizer import AIMDBatchOptimizer  # noqa: F401
 from repro_torch.core.proxy import MLProxy  # noqa: F401

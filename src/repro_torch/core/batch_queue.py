@@ -30,6 +30,7 @@ from repro_torch.core.request import Batch, Request
 
 if TYPE_CHECKING:  # imported lazily so the core stays obs-optional
     from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
 
 DispatchFn = Callable[[Batch], None]
 #: Called with (expired_requests, now) whenever the expiry sweep evicts

@@ -1,29 +1,35 @@
-"""Serving driver: MLProxy fronting the PyTorch engine on the card.
+"""Serving driver: MLProxy fronting the PyTorch engine on the simulated
+serverless platform.
 
-Requests arrive on a seeded Poisson schedule in virtual time and go
-through the paper's proxy (``MLProxy``: Smart Monitor, AIMD optimizer,
-Algorithm-1 scheduler); every batch it dispatches runs for real through
-``ReplicaPoolTarget`` → ``ReplicaPool`` → ``InferenceEngine`` on the
-device, and the measured wall time is the upstream latency the monitor
-learns from. One always-warm replica serves the dispatched batches one at
-a time: a batch completes at max(dispatch, replica free) plus its measured
-latency — the "transparent platform" of the sim↔live parity runs. The
-simulator and the serverless platform of the JAX driver are not ported
-yet; this loop drives the proxy through its public protocol and adds no
-policy logic.
+The hybrid loop of the JAX package's driver: simulated Poisson arrivals
+drive the proxy (``MLProxy``: Smart Monitor, AIMD optimizer, Algorithm-1
+scheduler) in virtual time in front of the simulated serverless platform
+(``ServerlessPlatform``: cold starts, Knative-style scaling, cost in
+container-seconds); every batch the platform runs executes a real bucketed
+prefill+decode through ``EngineBackedLatency`` → ``InferenceEngine`` on the
+device, and the measured wall time is the service time the Smart Monitor
+learns from. ``--snapshot`` persists the proxy's control-plane state, so
+a restarted proxy resumes with its learned latency statistics.
+
+The rate and SLO default to the offered-load rule (:func:`offered_load`)
+over the median of several timed batches of two. ``run_event_loop`` and
+``run_proxy_loop`` are the direct path: one always-warm replica behind
+``ReplicaPoolTarget`` and no platform (the "transparent platform" of the
+sim↔live parity runs).
 
     PYTHONPATH=src python -m repro_torch.launch.serve               # full qwen2-0.5b on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b   # full xLSTM-1.3B
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b  # full Zamba2-1.2B
-    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b --reduced --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --duration 20 [--snapshot proxy_state.json]
 """
 from __future__ import annotations
 
 import argparse
 import heapq
 import itertools
+import json
+import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,8 +38,11 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.config import OptimizerConfig, ProxyConfig, SLAConfig
 from repro_torch.core.proxy import MLProxy
 from repro_torch.core.request import Batch, Request
-from repro_torch.serving.batcher import ReplicaPoolTarget
-from repro_torch.serving.engine import EngineConfig, ReplicaPool
+from repro_torch.serverless.platform import PlatformConfig
+from repro_torch.serving.batcher import EngineBackedLatency, ReplicaPoolTarget
+from repro_torch.serving.engine import EngineConfig, InferenceEngine, ReplicaPool
+from repro_torch.simulation.arrivals import PoissonProcess
+from repro_torch.simulation.simulator import Simulator
 
 
 def engine_config(full_size: bool, gen_len: int) -> EngineConfig:
@@ -152,20 +161,83 @@ def run_proxy_loop(pool: ReplicaPool, *, n_requests: int, rate: float,
                           lambda batch: target(batch)[1]["latency_s"])
 
 
-def offered_load(timings: Dict[Tuple[int, int], float], prompt_bucket: int,
-                 batch: int = 2) -> Tuple[float, float]:
+def time_samples(engine: InferenceEngine, prompt_bucket: int, batch: int = 2,
+                 n: int = 5, seed: int = 0) -> List[float]:
+    """Wall seconds of ``n`` timed ``generate()`` calls of ``batch`` random
+    ``prompt_bucket``-token prompts, on an engine already warm at that
+    shape. They count in the engine's serving ``stats``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        prompts = rng.integers(0, engine.cfg.vocab_size,
+                               (batch, prompt_bucket)).astype(np.int32)
+        out.append(engine.generate(prompts)[1]["latency_s"])
+    return out
+
+
+def offered_load(samples: Sequence[float], batch: int = 2) -> Tuple[float, float]:
     """(arrival rate /s, SLO s) scaled to the engine's measured speed.
 
-    ``timings`` are ``warmup()``'s seconds per (batch bucket, prompt
-    bucket). With ``t`` the time of a ``batch``-request batch (MLProxy's
-    starting Max_BS is 2), the SLO is 10·t and the rate keeps one replica
-    80% busy at that batch size: 0.8·batch/t. A fixed rate and SLO would
-    put a slower engine into overload — the queue grows, the monitor's
-    latencies inflate and the AIMD optimizer shrinks batches to 1 — and a
-    faster one into idle timeouts.
+    ``samples`` are wall seconds of ``batch``-request batches (MLProxy's
+    starting Max_BS is 2) at the served prompt bucket, from
+    :func:`time_samples`. With ``t`` their median, the SLO is 10·t and the
+    rate keeps one replica 80% busy at that batch size: 0.8·batch/t. A
+    fixed rate and SLO would put a slower engine into overload — the queue
+    grows, the monitor's latencies inflate and the AIMD optimizer shrinks
+    batches to 1 — and a faster one into idle timeouts. The median of
+    several samples, not one, keeps a single slow or fast call (host
+    noise) from setting the operating point.
     """
-    t = timings[(batch, prompt_bucket)]
+    if len(samples) < 5:
+        raise ValueError(f"offered_load needs at least 5 samples, got {len(samples)}")
+    t = float(np.median(samples))
     return 0.8 * batch / t, 10.0 * t
+
+
+def build_simulator(engine: InferenceEngine, *, rate: float, duration: float,
+                    slo_s: float, prompt_len: int, gen_len: Optional[int] = None,
+                    timings: Optional[Dict[Tuple[int, int], float]] = None,
+                    policy: str = "mlproxy", seed: int = 0,
+                    snapshot: Optional[str] = None) -> Simulator:
+    """The JAX driver's simulation over ``engine``: Poisson arrivals at
+    ``rate`` for ``duration`` virtual seconds, ``policy`` in front of a
+    ``ServerlessPlatform`` with one warm container and 0.5 s cold starts,
+    every batch executed by the engine. ``timings`` (``warmup()``'s) seed
+    the latency model's per-bucket estimates, so the first RT95 probes do
+    not see 0.0. With ``snapshot`` naming a file that exists, the policy
+    resumes from the control-plane state saved there."""
+    workload = EngineBackedLatency(engine, prompt_len=prompt_len, gen_len=gen_len)
+    if timings:
+        workload.seed(timings)
+    policy_kwargs = ({"bucketing": "pow2",
+                      "optimizer": OptimizerConfig(update_interval=5.0, initial_max_bs=2)}
+                     if policy == "mlproxy" else {})
+    sim = Simulator(
+        policy=policy, sla=SLAConfig(slo_target=slo_s), workload=workload,
+        arrivals=PoissonProcess(rate=rate, duration=duration),
+        platform_config=PlatformConfig(initial_scale=1, cold_start=0.5),
+        duration=duration, seed=seed, policy_kwargs=policy_kwargs)
+    if snapshot and os.path.exists(snapshot):
+        with open(snapshot) as f:
+            sim.policy.restore(json.load(f))
+    return sim
+
+
+def save_snapshot(sim: Simulator, path: str) -> None:
+    """Persist the policy's control-plane state to ``path`` (JSON)."""
+    with open(path, "w") as f:
+        json.dump(sim.policy.snapshot(), f,
+                  default=lambda o: getattr(o, "__dict__", str(o)))
+
+
+def sim_line(summary: Dict[str, float]) -> str:
+    """The paper's end-to-end numbers of one simulated run."""
+    return (f"{summary['completed']:.0f} of {summary['submitted_requests']:.0f} requests, "
+            f"avg batch {summary['avg_batch_size']:.2f}, p95 {1e3 * summary['p95']:.1f} ms, "
+            f"violations {summary['violation_pct']:.2f}%, cost_integral "
+            f"{summary['cost_integral']:.2f} container-s, avg containers "
+            f"{summary['avg_containers']:.3f}, peak {summary['peak_containers']:.0f}, "
+            f"cold starts {summary['cold_starts']:.0f}")
 
 
 def summarize(result: Dict[str, Any]) -> Dict[str, Any]:
@@ -189,37 +261,49 @@ def summarize(result: Dict[str, Any]) -> Dict[str, Any]:
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", default="qwen2-0.5b", choices=list(ARCH_IDS))
-    p.add_argument("--requests", type=int, default=300)
+    p.add_argument("--duration", type=float, default=60.0,
+                   help="simulated seconds of arrivals")
     p.add_argument("--rate", type=float, default=None,
-                   help="arrivals per second (default: from the warmup timings)")
+                   help="arrivals per second (default: the offered-load rule)")
     p.add_argument("--slo-ms", type=float, default=None,
-                   help="response-time SLO (default: from the warmup timings)")
+                   help="response-time SLO (default: the offered-load rule)")
     p.add_argument("--gen-len", type=int, default=16)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reduced", action="store_true",
                    help="reduced config (CPU runs); default full size")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--snapshot", default=None,
+                   help="path to persist/restore proxy control-plane state")
     args = p.parse_args()
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     ecfg = engine_config(not args.reduced, args.gen_len)
-    pool = ReplicaPool(cfg, ecfg, seed=args.seed, device=args.device)
-    print(f"[serve] warming buckets for {cfg.name} on {pool.device} ...")
+    engine = InferenceEngine(cfg, ecfg, seed=args.seed, device=args.device)
     prompt_len = ecfg.prompt_buckets[-1]
-    rate, slo_s = offered_load(pool.warmup(), prompt_len)
+    print(f"[serve] warming buckets for {cfg.name} on {engine.device} ...")
+    timings = engine.warmup(plen=prompt_len)
+    samples = time_samples(engine, prompt_len, seed=args.seed)
+    rate, slo_s = offered_load(samples)
     rate = args.rate if args.rate is not None else rate
     slo_s = args.slo_ms / 1000.0 if args.slo_ms is not None else slo_s
-    print(f"[serve] {args.requests} requests at {rate:.2f}/s, SLO {slo_s * 1000:.0f} ms")
-    result = run_proxy_loop(
-        pool, n_requests=args.requests, rate=rate, prompt_len=prompt_len,
-        seed=args.seed, slo_s=slo_s,
-        optimizer=OptimizerConfig(update_interval=5.0, initial_max_bs=2))
-    s = summarize(result)
-    print(f"[serve] {s['completed']} requests, {s['batches']} batches, "
-          f"avg batch {s['avg_batch']:.2f}, P95 {s['p95_s'] * 1000:.0f} ms, "
-          f"ms per bucket {s['ms_per_bucket']}")
+    print("[serve] (2, %d) samples ms: %s" % (
+        prompt_len, ", ".join(f"{1e3 * t:.1f}" for t in samples)))
+    print(f"[serve] {args.duration:.0f} s of arrivals at {rate:.2f}/s, "
+          f"SLO {slo_s * 1000:.0f} ms")
+    sim = build_simulator(engine, rate=rate, duration=args.duration, slo_s=slo_s,
+                          prompt_len=prompt_len, gen_len=args.gen_len, timings=timings,
+                          seed=args.seed, snapshot=args.snapshot)
+    if args.snapshot and os.path.exists(args.snapshot):
+        print(f"[serve] restored proxy state (Max_BS={sim.policy.max_bs})")
+    batches0 = engine.stats["batches"]
+    res = sim.run()
+    print(f"[serve] {sim_line(res.summary)}; "
+          f"{engine.stats['batches'] - batches0:.0f} engine batches")
+    if args.snapshot:
+        save_snapshot(sim, args.snapshot)
+        print(f"[serve] proxy state saved → {args.snapshot}")
 
 
 if __name__ == "__main__":

@@ -153,13 +153,23 @@ def init_kv_cache(num_layers: int, batch: int, max_len: int, num_kv_heads: int,
     }
 
 
+def clamp_start(start: torch.Tensor, s_max: int, s: int = 1) -> torch.Tensor:
+    """``start`` clamped to ``s_max - s`` on the device, as JAX's
+    ``dynamic_update_slice`` clamps its start: a write that would run past
+    the cache's end lands on its last ``s`` rows instead."""
+    return torch.clamp(start, max=s_max - s)
+
+
 def cache_update_layer(k_cache: torch.Tensor, v_cache: torch.Tensor,
                        k: torch.Tensor, v: torch.Tensor, start):
     """Write (B, S, Hkv, D) at position ``start`` of one layer's cache.
 
     In place (JAX returns a new cache; here the pooled buffer is updated),
     and ``start`` may be a device tensor: the write is an ``index_copy_``
-    on the device, with no host sync. Returns the updated caches.
+    on the device, with no host sync. ``start`` must lie in
+    ``[0, S_max - S]``: a caller whose start can run past the end clamps
+    it first with :func:`clamp_start`, once for all layers. Returns the
+    updated caches.
     """
     s = k.shape[1]
     idx = torch.as_tensor(start, device=k_cache.device).reshape(1).long()

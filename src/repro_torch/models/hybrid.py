@@ -89,13 +89,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 
 def _shared_block(cfg: ModelConfig, shared: Params, x, cos, sin, positions,
-                  mode: str, kv=None, cache_len=None):
+                  mode: str, kv=None, write_at=None, lengths=None):
     """One application of the shared attention+FFN block.
 
     ``kv`` is this application's cache slice ``(k, v)``, each
     ``(B, S_max, Hkv, D)``, written in place: at prefill rows ``[0:S]``, at
-    decode the row at ``cache_len`` (a device tensor), after which the
-    block attends over ``cache_len + 1`` rows.
+    decode the row at ``write_at`` (a device tensor, already clamped into
+    the cache), after which the block attends over ``lengths`` rows.
     """
     _, norm = make_norm(cfg.norm)
     h = norm(shared["attn_norm"], x)
@@ -104,8 +104,8 @@ def _shared_block(cfg: ModelConfig, shared: Params, x, cos, sin, positions,
     k = apply_rope(k, cos, sin, positions)
     if mode == "decode":
         k_cache, v_cache = kv
-        attn_lib.cache_update_layer(k_cache, v_cache, k, v, cache_len)
-        out = kernel_ops.decode_attention(q, k_cache, v_cache, (cache_len + 1).reshape(1))
+        attn_lib.cache_update_layer(k_cache, v_cache, k, v, write_at)
+        out = kernel_ops.decode_attention(q, k_cache, v_cache, lengths)
     else:
         out = kernel_ops.flash_attention(q, k, v, causal=True)
         if kv is not None:
@@ -167,9 +167,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Dict[
 def _rope_for(cfg: ModelConfig, cache, rope: Optional[Rope]) -> Rope:
     if rope is not None:
         return rope
-    # every position a cache can hold; the rows equal the JAX package's
-    # (max_seq_len, D/2) table's first S_max rows
-    return rope_frequencies(cfg.hd, cache["attn_k"].shape[2], cfg.rope_theta,
+    # the JAX package's (max_seq_len, D/2) table: decode positions run past
+    # the cache's S_max when plen + gen_len - 1 > max_len
+    return rope_frequencies(cfg.hd, cfg.max_seq_len, cfg.rope_theta,
                             device=cache["attn_k"].device)
 
 
@@ -181,8 +181,14 @@ def _run_with_cache(cfg: ModelConfig, params: Params, tokens, cache: Dict[str, A
     cos, sin = _rope_for(cfg, cache, rope)
     cache_len = cache["len"]
     decode = mode == "decode"
+    write_at = lengths = None
     if decode:
-        positions = cache_len.reshape(1, 1).long().expand(b, 1)
+        # past the cache's end, as the dense decode_step: the last RoPE
+        # row, the last cache row, every row attended
+        pos = cache_len.reshape(1).long()
+        positions = pos.clamp(max=cos.shape[0] - 1).reshape(1, 1).expand(b, 1)
+        write_at = attn_lib.clamp_start(pos, cache["attn_k"].shape[2])
+        lengths = (cache_len + 1).reshape(1)
     else:
         positions = torch.arange(s, device=x.device).expand(b, s)
     flags, app_idx = _attn_flags(cfg)
@@ -191,7 +197,7 @@ def _run_with_cache(cfg: ModelConfig, params: Params, tokens, cache: Dict[str, A
         if is_attn:
             kv = (cache["attn_k"][app], cache["attn_v"][app])
             x = _shared_block(cfg, params["shared"], x, cos, sin, positions, mode,
-                              kv=kv, cache_len=cache_len)
+                              kv=kv, write_at=write_at, lengths=lengths)
         state = {"h": cache["ssm_h"][i], "conv": cache["ssm_conv"][i]}
         x = _mamba(cfg, layer, x, state=state, step=decode)
     if decode:

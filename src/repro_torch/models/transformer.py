@@ -125,9 +125,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Dict[
 def _rope_for(cfg: ModelConfig, cache, rope: Optional[Rope]) -> Rope:
     if rope is not None:
         return rope
-    # every position a cache can hold; the rows equal the JAX package's
-    # (max_seq_len, D/2) table's first S_max rows
-    return rope_frequencies(cfg.hd, cache["k"].shape[2], cfg.rope_theta,
+    # the JAX package's (max_seq_len, D/2) table: decode positions run past
+    # the cache's S_max when plen + gen_len - 1 > max_len
+    return rope_frequencies(cfg.hd, cfg.max_seq_len, cfg.rope_theta,
                             device=cache["k"].device)
 
 
@@ -158,7 +158,11 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache: Dict[str, torch
     """One decode step, in place. tokens: (B, 1) int → (logits (B, 1, V), cache).
 
     The position, the cache write index and the attended length all derive
-    from the device-side ``cache["len"]``: no host sync.
+    from the device-side ``cache["len"]``: no host sync. Past the cache's
+    end the step does what the JAX package's does: the RoPE row of a
+    position past the table is its last row (a gather clamps), the write
+    lands on the last cache row (``dynamic_update_slice`` clamps), and
+    every row is attended (the kernel clamps the length to S_max).
     """
     _check_supported(cfg)
     x = _embed_tokens(cfg, params, tokens)
@@ -166,13 +170,14 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache: Dict[str, torch
     cos, sin = _rope_for(cfg, cache, rope)
     cache_len = cache["len"]
     pos = cache_len.reshape(1).long()
-    positions = pos.reshape(1, 1).expand(b, 1)
+    positions = pos.clamp(max=cos.shape[0] - 1).reshape(1, 1).expand(b, 1)
+    write_at = attn_lib.clamp_start(pos, cache["k"].shape[2])
     lengths = (cache_len + 1).reshape(1)  # includes the token written now
     k_layers = torch.unbind(cache["k"], 0)
     v_layers = torch.unbind(cache["v"], 0)
     for p, kc, vc in zip(layer_views(params["layers"], cfg.num_layers), k_layers, v_layers):
         q, k, v = _qkv_rope(cfg, p, rmsnorm(p["attn_norm"], x), cos, sin, positions)
-        attn_lib.cache_update_layer(kc, vc, k, v, pos)
+        attn_lib.cache_update_layer(kc, vc, k, v, write_at)
         out = kernel_ops.decode_attention(q, kc, vc, lengths)
         x = _finish_layer(cfg, p, x, out)
     cache["len"].add_(1)

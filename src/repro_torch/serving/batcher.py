@@ -1,20 +1,118 @@
 """Glue between the MLProxy control plane and the PyTorch engine.
 
+``EngineBackedLatency`` turns the real engine into a
+:class:`~repro_torch.serverless.latency.LatencyModel`: ``sample(batch_size)``
+executes a real bucketed prefill+decode on the engine's device and returns
+measured wall seconds. Plugging it into the Simulator gives the hybrid
+loop of ``launch/serve.py``: simulated arrivals and serverless platform
+(cold starts, scaling, cost) + real MLProxy decisions + real execution on
+the card (service times measured, not modeled). It is the JAX package's
+class over the torch engine, which has the same ``ecfg``, ``cfg`` and
+``generate`` surface.
+
 ``ReplicaPoolTarget`` is the real-serving dispatch target: it adapts a
 :class:`~repro_torch.serving.engine.ReplicaPool` to the
 ``dispatch_fn(batch)`` contract of the shared
 :class:`~repro_torch.core.batch_queue.BatchQueue`, so a policy dispatches
-straight onto the card. (The JAX package's ``EngineBackedLatency`` waits
-for the slice that ports the simulator and the serverless platform.)
+straight onto the card.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.request import Batch
-from repro_torch.serving.engine import ReplicaPool, wall_clock
+from repro_torch.serverless.latency import LatencyModel
+from repro_torch.serving.engine import (
+    InferenceEngine,
+    ReplicaPool,
+    next_bucket,
+    wall_clock,
+)
+
+
+class EngineBackedLatency(LatencyModel):
+    """LatencyModel whose samples are real engine executions.
+
+    Estimates start cold; seed them from warmup timings
+    (``seed(engine.warmup())`` or ``warmup=True``) so the first policy
+    RT95 probes see realistic per-bucket latency instead of 0.0 — a cold
+    0.0 estimate makes the scheduler promise free batches until real
+    samples correct it.
+    """
+
+    name = "engine"
+    noise_cv = 0.0  # real wall-clock variation is the noise
+
+    def __init__(self, engine: InferenceEngine, prompt_len: int = 16,
+                 gen_len: Optional[int] = None, warmup: bool = False) -> None:
+        self.engine = engine
+        self.prompt_len = prompt_len
+        self.gen_len = gen_len
+        self._ema: Dict[int, float] = {}
+        if warmup:
+            self.seed(engine.warmup(plen=prompt_len))
+
+    def seed(self, timings: Mapping[Tuple[int, int], float]) -> None:
+        """Seed per-bucket EMAs from ``warmup()`` timings.
+
+        ``timings`` maps (batch bucket, prompt bucket) → seconds; for each
+        batch bucket the timing of the prompt bucket closest to this
+        model's ``prompt_len`` is used. Measured samples keep updating the
+        EMA afterwards — the seed only covers the cold window.
+        """
+        by_bucket: Dict[int, Tuple[int, float]] = {}
+        for (bucket, plen), dt in timings.items():
+            best = by_bucket.get(bucket)
+            dist = abs(plen - self.prompt_len)
+            if best is None or dist < best[0]:
+                by_bucket[bucket] = (dist, dt)
+        for bucket, (_, dt) in by_bucket.items():
+            self._ema.setdefault(bucket, dt)
+
+    def mean(self, batch_size: int) -> float:
+        # clamp: estimation must stay total for any size the policy may
+        # probe (RT95[N_q+1] can exceed the largest compiled bucket); an
+        # oversized size executes as sequential largest-bucket chunks, so
+        # the estimate carries the same chunk factor sample() pays
+        largest = self.engine.ecfg.batch_buckets[-1]
+        chunks = max(1, -(-batch_size // largest))
+        bucket = next_bucket(batch_size, self.engine.ecfg.batch_buckets,
+                             clamp=True)
+        if bucket in self._ema:
+            return chunks * self._ema[bucket]
+        # Never measured: scale the nearest known bucket's EMA by the
+        # bucket-size ratio. The old behaviour (largest known EMA,
+        # unscaled) under-estimated bigger buckets and over-estimated
+        # smaller ones; linear-in-bucket scaling is conservative for
+        # sub-linear batching but keeps estimates ordered.
+        known = sorted(self._ema)
+        if known:
+            nearest = min(known, key=lambda b: abs(b - bucket))
+            return chunks * self._ema[nearest] * (bucket / nearest)
+        return 0.0
+
+    def sample(self, batch_size: int, rng: np.random.Generator) -> float:
+        # Oversized sizes execute as sequential largest-bucket chunks —
+        # exactly what the dispatch path does — so the sampled latency is
+        # the real cost, not a mid-simulation ValueError.
+        largest = self.engine.ecfg.batch_buckets[-1]
+        total = 0.0
+        remaining = batch_size
+        while remaining > 0:
+            n = min(remaining, largest)
+            prompts = rng.integers(
+                0, self.engine.cfg.vocab_size,
+                size=(n, self.prompt_len)).astype(np.int32)
+            _, timing = self.engine.generate(prompts, gen_len=self.gen_len)
+            bucket = timing["bucket"]
+            dt = timing["latency_s"]
+            prev = self._ema.get(bucket)
+            self._ema[bucket] = dt if prev is None else 0.8 * prev + 0.2 * dt
+            total += dt
+            remaining -= n
+        return total
 
 
 class ReplicaPoolTarget:

@@ -38,10 +38,21 @@ per-bucket KV pool is what the kernels read.
   reads the cache's state, so its pooled engine leaks it too; the
   reference is again ``cache_pool=False``.)
 * **RoPE tables** are computed once per engine, on its device, for the
-  families that use them.
+  families that use them, at the model's ``max_seq_len`` as the JAX
+  model's decode builds them: a request with plen + gen_len - 1 >
+  ``max_len`` decodes past the cache's end, and gets the JAX engine's
+  tokens (the model clamps the cache write onto the last row, as
+  ``dynamic_update_slice`` does).
+* **One CUDA stream per engine**: on the card each engine (each replica
+  of a pool) runs ``generate()`` and ``warmup()`` on a stream of its own
+  and synchronises only that stream, so one replica's measured latency —
+  what the Smart Monitor learns from — holds its own work and not the
+  other replicas'. The weights and RoPE tables are made on the default
+  stream; the engine's stream waits for them once, when it is created.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -109,9 +120,15 @@ class InferenceEngine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
         self.params = params
-        self.rope = (rope_frequencies(cfg.hd, engine_cfg.max_len, cfg.rope_theta,
+        self.rope = (rope_frequencies(cfg.hd, cfg.max_seq_len, cfg.rope_theta,
                                       device=self.device)
                      if self.model.uses_rope else None)
+        #: this engine's CUDA stream (None off the card); it waits once for
+        #: the weights and tables made on the default stream
+        self.stream: Optional[torch.cuda.Stream] = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         # First use of each shape key: (bucket, plen) for prefill, bucket
         # for the per-token step, (bucket, steps) for the fused loop — the
         # keys the JAX engine compiles a program for. Eager PyTorch
@@ -162,9 +179,16 @@ class InferenceEngine:
             steps = next_bucket(gen_len, self.ecfg.gen_buckets, clamp=True)
         return max(gen_len, min(steps, self.ecfg.max_len - plen + 1))
 
+    def _on_stream(self):
+        """Context that makes this engine's stream the current one."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for this engine's own work only (never the whole device)."""
+        if self.stream is not None:
+            self.stream.synchronize()
 
     def warmup(self, plen: Optional[int] = None) -> Dict[Tuple[int, int], float]:
         """Run every (batch bucket, prompt bucket) pair twice (what a replica
@@ -190,14 +214,20 @@ class InferenceEngine:
         return timings
 
     # ------------------------------------------------------------------ api
-    @torch.inference_mode()
     def generate(self, prompts: np.ndarray, gen_len: Optional[int] = None,
                  ) -> Tuple[np.ndarray, Dict[str, float]]:
-        """Greedy-decode ``gen_len`` tokens for a batch of prompts.
+        """Greedy-decode ``gen_len`` tokens for a batch of prompts, on this
+        engine's stream.
 
         prompts: (n, plen) int32, n ≤ largest bucket. Returns (tokens
         (n, gen_len), timing dict with wall seconds + bucket metadata).
         """
+        with self._on_stream():
+            return self._generate(prompts, gen_len)
+
+    @torch.inference_mode()
+    def _generate(self, prompts: np.ndarray, gen_len: Optional[int],
+                  ) -> Tuple[np.ndarray, Dict[str, float]]:
         gen_len = gen_len if gen_len is not None else self.ecfg.gen_len
         n, plen_raw = prompts.shape
         bucket = next_bucket(n, self.ecfg.batch_buckets)

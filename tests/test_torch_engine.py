@@ -75,6 +75,60 @@ def test_generate_matches_jax_engine_tokens():
     assert (tt["bucket"], tt["prompt_bucket"]) == (jt["bucket"], jt["prompt_bucket"])
 
 
+@pytest.mark.parametrize("max_len", [20, 32])
+def test_generate_matches_jax_engine_past_max_len(max_len):
+    """plen + gen_len - 1 = 23 > max_len = 20: the JAX engine decodes past
+    the cache's end (its RoPE table is max_seq_len long, its cache write
+    clamps onto the last row) and gives tokens; the port gives the same.
+    At max_len = 32 there is room and nothing changes."""
+    jcfg = jget_config("qwen2-0.5b").reduced()
+    tcfg = tget_config("qwen2-0.5b").reduced()
+    kw = dict(batch_buckets=(1,), prompt_buckets=(16,), max_len=max_len, gen_len=8)
+    jeng = JInferenceEngine(jcfg, JEngineConfig(**kw), rng=jax.random.PRNGKey(0))
+    params = convert.from_jax(jax.device_get(jeng.params))
+    teng = InferenceEngine(tcfg, EngineConfig(**kw), params=params, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, jcfg.vocab_size, (1, 16)).astype(np.int32)
+    want, _ = jeng.generate(prompts)
+    got, _ = teng.generate(prompts)
+    np.testing.assert_array_equal(got, want)
+    per_token = InferenceEngine(tcfg, EngineConfig(fused_decode=False, **kw), params=params,
+                                device="cpu")
+    np.testing.assert_array_equal(per_token.generate(prompts)[0], want)
+
+
+def test_decode_past_the_cache_end_writes_the_last_row():
+    """The decode write clamps onto the cache's last row, as
+    ``dynamic_update_slice`` does; the length keeps counting."""
+    params = ttransformer.init_params(TINY, torch.Generator().manual_seed(0))
+    cache = ttransformer.init_cache(TINY, 1, 4)
+    _, cache = ttransformer.prefill(TINY, params, torch.ones((1, 4), dtype=torch.long), cache)
+    before = cache["k"].clone()
+    _, cache = ttransformer.decode_step(TINY, params, torch.full((1, 1), 5), cache)
+    assert int(cache["len"]) == 5
+    torch.testing.assert_close(cache["k"][:, :, :3], before[:, :, :3], rtol=0, atol=0)
+    assert not torch.equal(cache["k"][:, :, 3], before[:, :, 3])
+
+
+# ------------------------------------------------------------------ streams
+def test_engine_never_synchronizes_the_whole_device(shared_params, monkeypatch):
+    """A replica waits only for its own stream: the engine's source names
+    no device-wide synchronize, and a generate() calls none."""
+    import inspect
+
+    from repro_torch.serving import engine as engine_mod
+
+    assert "cuda.synchronize" not in inspect.getsource(engine_mod)
+
+    def forbidden(*a, **k):
+        raise AssertionError("device-wide torch.cuda.synchronize called")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", forbidden)
+    eng = _engine(shared_params)
+    assert eng.stream is None  # off the card: no stream, nothing changes
+    out, _ = eng.generate(np.ones((2, 4), np.int32))
+    assert out.shape == (2, 8)
+
+
 # ------------------------------------------------------------- fused decode
 @pytest.mark.parametrize("n", [1, 3, 4])
 def test_fused_equals_per_token(shared_params, n):

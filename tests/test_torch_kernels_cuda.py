@@ -267,3 +267,70 @@ class TestKernelsOnCard:
         want = tref.ssd_scan(x.contiguous(), dt, a, bb.contiguous(), cc.contiguous(), chunk=16)
         torch.cuda.synchronize()
         _close(got, want, "float32", SSD_TOL)
+
+
+@pytest.mark.cuda
+class TestEngineOnCard:
+    """The engine's card-only properties: each replica on its own stream,
+    and a decode past ``max_len`` as the JAX engine does it (CPU parity
+    with the JAX engine is in ``tests/test_torch_engine.py``)."""
+
+    @staticmethod
+    def _engine(arch, device, params=None, **kw):
+        from repro_torch.configs import get_config
+        from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+        ecfg = EngineConfig(**{**dict(batch_buckets=(1, 2), prompt_buckets=(16,),
+                                      max_len=20, gen_len=8), **kw})
+        return InferenceEngine(get_config(arch).reduced(), ecfg, params=params, seed=0,
+                               device=device)
+
+    @pytest.mark.parametrize("arch", ["qwen2-0.5b", "zamba2-1.2b"])
+    def test_decode_past_max_len_matches_the_cpu(self, cuda, arch):
+        """plen + gen_len - 1 = 23 > max_len = 20: the card gives the CPU's
+        tokens (no device-side assert), and so does the per-token loop."""
+        card = self._engine(arch, cuda)
+        cpu = self._engine(arch, "cpu", params=_tree_to(card.params, "cpu"))
+        prompts = np.random.default_rng(0).integers(
+            0, card.cfg.vocab_size, (2, 16)).astype(np.int32)
+        got, _ = card.generate(prompts)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got, cpu.generate(prompts)[0])
+        per_token = self._engine(arch, cuda, params=card.params, fused_decode=False)
+        np.testing.assert_array_equal(per_token.generate(prompts)[0], got)
+
+    def test_replica_does_not_wait_for_another_replicas_stream(self, cuda):
+        import time
+
+        from repro_torch.serving.engine import ReplicaPool
+
+        eng = self._engine("qwen2-0.5b", cuda, max_len=32)
+        pool = ReplicaPool(eng.cfg, eng.ecfg, n_replicas=2, params=eng.params, device=cuda)
+        r0, r1 = pool.replicas
+        assert r0.stream is not None and r0.stream != r1.stream
+        prompts = np.random.default_rng(1).integers(0, eng.cfg.vocab_size,
+                                                    (2, 16)).astype(np.int32)
+        r1.generate(prompts)
+        alone, _ = r1.generate(prompts)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(100_000_000)
+        end.record()
+        end.synchronize()
+        cycles = int(2000.0 * 1e8 / start.elapsed_time(end))  # ~2 s
+        with torch.cuda.stream(r0.stream):
+            torch.cuda._sleep(cycles)
+        t0 = time.monotonic()
+        got, _ = r1.generate(prompts)
+        took = time.monotonic() - t0
+        held = not r0.stream.query()
+        r0.stream.synchronize()
+        assert held, "replica 0's sleep ended before replica 1 returned"
+        assert took < 1.0, f"replica 1 took {took:.3f} s beside a 2 s sleep on replica 0"
+        np.testing.assert_array_equal(got, alone)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -248,6 +248,24 @@ def test_pooled_engine_matches_jax_engine_across_two_batches(reduced):
     assert teng.cache_allocs == 1 and teng.prefill_calls == 2
 
 
+@pytest.mark.parametrize("max_len", [20, 32])
+def test_engine_matches_jax_engine_past_max_len(reduced, max_len):
+    """plen + gen_len - 1 = 23 > max_len = 20: the shared block's decode
+    runs past its cache's end; the port gives the JAX engine's tokens
+    (its RoPE table at max_seq_len, the write clamped onto the last row).
+    At max_len = 32 there is room and nothing changes."""
+    jcfg, tcfg, params_np = reduced
+    kw = dict(batch_buckets=(1,), prompt_buckets=(16,), max_len=max_len, gen_len=8)
+    jeng = JInferenceEngine(jcfg, JEngineConfig(cache_pool=False, **kw),
+                            params=jax.tree_util.tree_map(jnp.asarray, params_np))
+    teng = InferenceEngine(tcfg, EngineConfig(**kw), params=convert.from_jax(params_np),
+                           device="cpu")
+    prompts = np.random.default_rng(0).integers(0, jcfg.vocab_size, (1, 16)).astype(np.int32)
+    want, _ = jeng.generate(prompts)
+    got, _ = teng.generate(prompts)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_init_params_and_cache_trees_match_jax():
     cfg = tget_config("zamba2-1.2b").reduced()
     jcfg = jget_config("zamba2-1.2b").reduced()
