@@ -48,6 +48,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    fresh cache gives it; and, for qwen2-0.5b, a decode past ``max_len``
    must give tokens with no device assert, and one replica's
    ``generate()`` must not wait for another replica's stream.
+6. Live runtime: two replicas of full-width qwen2-0.5b (one copy of the
+   weights, a CUDA stream each) behind the wall-clock ``AsyncProxyServer``
+   (``repro_torch.runtime``): ``run_replay`` with Poisson arrivals at
+   twice the one-replica rate for 20 s, MLProxy, ``EngineTarget`` running
+   each batch on an executor thread. Every request must be conserved and
+   complete with its 16 tokens, the average batch must be above 1 and
+   both replicas must serve; it prints p95, violations and how many
+   batches overlapped one on the other replica. Then 10 s behind
+   ``FaultyTarget`` (crashes, partial batches, stragglers; 2 retries, a
+   circuit breaker), which must conserve every request; then
+   ``measure_engine`` on the idle card beside the live run's per-bucket
+   latencies. Launch counts as in 5, summed over both replicas.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -81,6 +93,8 @@ SIM_ARRIVALS = {"qwen2-0.5b": 300, "xlstm-1.3b": 100, "zamba2-1.2b": 300}
 DIRECT_REQUESTS = {"qwen2-0.5b": 60, "xlstm-1.3b": 30, "zamba2-1.2b": 60}
 #: the model also served under the passthrough policy (the paper's baseline)
 PASSTHROUGH_ARCH, PASSTHROUGH_ARRIVALS = "qwen2-0.5b", 100
+#: the live runtime's replicas and wall seconds of arrivals (MLProxy, chaos)
+LIVE_REPLICAS, LIVE_SECONDS, CHAOS_SECONDS = 2, 20.0, 10.0
 
 
 def log(msg: str) -> None:
@@ -648,26 +662,28 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def counted_run(torch, engine, fn):
-    """Run ``fn()`` (one serving path over ``engine``) with every kernel's
-    launch count set to 0 just before and read just after; fail unless
-    the path made prefills and decode steps and launched each kernel
-    exactly as often as those prefills and steps need. Returns (fn's
-    result, launches, wall seconds, prefills, decode steps)."""
+def counted_run(torch, engines, fn):
+    """Run ``fn()`` (one serving path over ``engines``, one or more
+    replicas) with every kernel's launch count set to 0 just before and
+    read just after; fail unless the path made prefills and decode steps
+    and launched each kernel exactly as often as those prefills and steps
+    need, summed over the engines. Returns (fn's result, launches, wall
+    seconds, prefills, decode steps)."""
     from repro_torch.kernels import ops
 
-    prefills0, steps0 = engine.prefill_calls, engine.decode_steps
+    prefills0 = sum(e.prefill_calls for e in engines)
+    steps0 = sum(e.decode_steps for e in engines)
     ops.reset_launches()
     t0 = time.monotonic()
     out = fn()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = ops.launches()
-    prefills = engine.prefill_calls - prefills0
-    steps = engine.decode_steps - steps0
+    prefills = sum(e.prefill_calls for e in engines) - prefills0
+    steps = sum(e.decode_steps for e in engines) - steps0
     if prefills == 0 or steps == 0:
         raise AssertionError("the serving run made no prefill or no decode step")
-    want = expected_launches(engine.cfg, prefills, steps)
+    want = expected_launches(engines[0].cfg, prefills, steps)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want} for {prefills} "
                              f"prefills and {steps} decode steps")
@@ -718,7 +734,7 @@ def phase_serve(torch, arch: str) -> dict:
     # the direct path: one always-warm replica behind ReplicaPoolTarget
     n_requests = DIRECT_REQUESTS[arch]
     result, counts, wall, prefills, steps = counted_run(
-        torch, engine, lambda: serve.run_proxy_loop(
+        torch, [engine], lambda: serve.run_proxy_loop(
             pool, n_requests=n_requests, rate=rate, prompt_len=128, seed=0,
             slo_s=slo_s, optimizer=OptimizerConfig(update_interval=5.0, initial_max_bs=2),
             bucketing="pow2"))
@@ -752,7 +768,7 @@ def phase_serve(torch, arch: str) -> dict:
                                     slo_s=slo_s, prompt_len=128, gen_len=ecfg.gen_len,
                                     timings=warm, policy=policy, seed=0)
         batches0 = engine.stats["batches"]
-        res, counts, wall, prefills, steps = counted_run(torch, engine, sim.run)
+        res, counts, wall, prefills, steps = counted_run(torch, [engine], sim.run)
         add_counts(launches, counts)
         s = res.summary
         sims[policy] = s
@@ -926,6 +942,328 @@ def profile_generate(torch, engine, cfg) -> None:
         log(f"[profile]   {ms:8.3f} ms  {count[name]:6d}x  {name[:90]}")
 
 
+# ------------------------------------------------------------ live runtime
+def recording_target(pool, **kw):
+    """A ``ReplicaPoolTarget`` over ``pool`` that gives every request its
+    own prompt (random tokens seeded by its id, so no two batches are
+    alike) and logs, for each batch it serves, (replica, engine start, end,
+    requests, prompts, tokens) on its own clock; the engine's start is the
+    end less its measured ``latency_s``, so a wait for a replica's lock is
+    not counted as overlap."""
+    import numpy as np
+
+    from repro_torch.serving.batcher import ReplicaPoolTarget
+
+    vocab = pool.cfg.vocab_size
+
+    class Recording(ReplicaPoolTarget):
+        def _prompts(self, batch):
+            return np.stack([np.random.default_rng(r.req_id).integers(
+                0, vocab, self.prompt_len).astype(np.int32) for r in batch.requests])
+
+        def __call__(self, batch, deadline=None):
+            out, timing = super().__call__(batch, deadline=deadline)
+            end = self.clock()
+            self.log.append((timing["replica"], end - timing["latency_s"], end,
+                             list(batch.requests), self._prompts(batch), np.array(out)))
+            return out, timing
+
+    target = Recording(pool, **kw)
+    target.log = []
+    return target
+
+
+def overlapping(log) -> list:
+    """The batches whose engine interval overlaps one on another replica."""
+    return [entry for entry in log
+            if any(e2[0] != entry[0] and e2[1] < entry[2] and entry[1] < e2[2]
+                   for e2 in log)]
+
+
+def replay_check(engine, log, tokens: int = 400) -> str:
+    """Serve again, one batch at a time on ``engine``, about ``tokens``
+    tokens' worth of the live run's batches, those served while the other
+    replica was busy first, and fail unless each gives exactly the tokens
+    it gave live."""
+    import numpy as np
+
+    ov = overlapping(log)
+    seen = {id(e) for e in ov}
+    picks, n_tok = [], 0
+    for entry in ov + [e for e in log if id(e) not in seen]:
+        if n_tok >= tokens:
+            break
+        picks.append(entry)
+        n_tok += entry[5].size
+    for replica, _, _, reqs, prompts, live in picks:
+        again = engine.generate(prompts)[0]
+        if not np.array_equal(again, live):
+            bad = np.argwhere(again != live)
+            raise AssertionError(
+                f"live batch of {len(reqs)} on replica {replica} (requests "
+                f"{[r.req_id for r in reqs]}) gave other tokens than the same prompts "
+                f"served alone: {len(bad)} of {live.size} differ, first at {bad[0].tolist()}")
+    return (f"{len(picks)} batches ({min(len(ov), len(picks))} overlapping one on the other "
+            f"replica; {sum(e[0] == 0 for e in picks)} / {sum(e[0] == 1 for e in picks)} "
+            f"served live by replica 0 / 1), {n_tok} tokens")
+
+
+def pool_capacity(pool, prompt_len: int, n: int = 4):
+    """How the pool's replicas share the host: ``n`` timed (2,
+    ``prompt_len``) ``generate()`` calls for each replica, first all on
+    replica 0 alone, then on every replica at once, a thread each, each
+    replica with prompts of its own. Fails unless every call gives exactly
+    the tokens replica 0 gave alone for the same prompts. Returns (batches
+    a second alone, at once; the host thread's CPU seconds a
+    ``generate()`` alone, at once). A thread that waits for a lock spends
+    wall time but no CPU time."""
+    import threading
+
+    import numpy as np
+
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, pool.cfg.vocab_size, (2, prompt_len)).astype(np.int32)
+               for _ in pool.replicas]
+    want = [pool.replicas[0].generate(p)[0] for p in prompts]
+    bad = []
+    total = n * len(pool.replicas)
+    t0, c0 = time.monotonic(), time.thread_time()
+    for k in range(total):
+        if not np.array_equal(pool.replicas[0].generate(prompts[k % len(prompts)])[0],
+                              want[k % len(prompts)]):
+            bad.append(("alone", k))
+    one, cpu_one = total / (time.monotonic() - t0), (time.thread_time() - c0) / total
+    cpu = []
+
+    def work(i, engine):
+        c0 = time.thread_time()
+        for k in range(n):
+            if not np.array_equal(engine.generate(prompts[i])[0], want[i]):
+                bad.append((f"replica {i} at once", k))
+        cpu.append((time.thread_time() - c0) / n)
+
+    threads = [threading.Thread(target=work, args=(i, e)) for i, e in enumerate(pool.replicas)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    both = total / (time.monotonic() - t0)
+    if bad:
+        raise AssertionError(f"pool capacity probe: tokens differ from replica 0 alone: {bad}")
+    return one, both, cpu_one, statistics.mean(cpu)
+
+
+def union_length(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, reach = 0.0, None
+    for s, e in sorted(intervals):
+        if reach is None or s > reach:
+            total, reach = total + e - s, e
+        elif e > reach:
+            total, reach = total + e - reach, e
+    return total
+
+
+#: the CUDA runtime calls by which the host launches a kernel
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def profile_pool(torch, pool, prompt_len: int) -> None:
+    """Where two replicas' threads lose: torch.profiler over one
+    (2, ``prompt_len``) ``generate()`` on replica 0 of the idle pool, then
+    one on each replica at once, a thread each. For each: wall, device busy
+    (the union of kernel intervals over every stream), the device's idle
+    share, and the host's kernel-launch calls (CUPTI's runtime records,
+    which do not tell threads apart): their count, rate and the median gap
+    between two of them."""
+    import statistics as st
+    import threading
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts = np.random.default_rng(7).integers(
+        0, pool.cfg.vocab_size, (2, prompt_len)).astype(np.int32)
+
+    def both():
+        threads = [threading.Thread(target=e.generate, args=(prompts,)) for e in pool.replicas]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    for what, fn in (("replica 0 alone", lambda: pool.replicas[0].generate(prompts)),
+                     (f"{len(pool.replicas)} replicas at once", both)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.monotonic() - t0)
+        events = prof.events()
+        kernels = [(e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        calls = sorted(e.time_range.start for e in events
+                       if e.device_type == torch.autograd.DeviceType.CPU
+                       and e.name in LAUNCH_CALLS)
+        if not kernels:
+            log(f"[live] profile, {what}: no device time recorded: busy share not measured")
+            continue
+        busy_ms = union_length(kernels) / 1e3
+        host = (f"{len(calls)}, {1e3 * len(calls) / wall_ms:.0f} a second, median gap "
+                f"{st.median(np.diff(calls)):.2f} us" if len(calls) > 1 else "not recorded")
+        log(f"[live] profile, {what}, (2, {prompt_len}) x {pool.engine_cfg.gen_len} tokens: "
+            f"wall {wall_ms:.2f} ms, {len(kernels)} kernels, device busy {busy_ms:.2f} ms "
+            f"(kernel time summed {sum(e - s for s, e in kernels) / 1e3:.2f} ms), idle share "
+            f"{1 - busy_ms / wall_ms:.3f}; host launch calls: {host}")
+
+
+def check_conserved(cons: dict, what: str) -> None:
+    terminal = (cons["completed"] + cons["rejected"] + cons["shed"]
+                + cons["timed_out"] + cons["failed"])
+    if cons["lost"] or cons["outstanding"] or cons["submitted"] != terminal:
+        raise AssertionError(f"{what}: requests not conserved: {cons}")
+
+
+def phase_live(torch) -> dict:
+    """The live wall-clock runtime in front of two replicas of full-width
+    qwen2-0.5b on the card: ``run_replay`` (Poisson ``LoadGenerator`` ->
+    ``AsyncProxyServer`` + MLProxy -> ``EngineTarget`` -> executor thread
+    -> ``ReplicaPoolTarget`` -> ``ReplicaPool.generate``) on a
+    ``WallClock`` (a ``FakeClock`` would jump while an executor thread
+    runs), then the same behind ``FaultyTarget`` with retries and a
+    breaker, then the idle-card calibration beside the live one. The rate
+    is the offered-load rule (80% busy at batch 2) over the batches a
+    second the two replicas' threads measurably serve, the SLO 10·t of
+    replica 0 alone. Before the runs, a profile of one replica alone and of
+    both at once; after the MLProxy run, a sample of its batches served
+    again alone must give the same tokens. Returns the kernel launch
+    counts of the two runs, summed."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import OptimizerConfig, SLAConfig
+    from repro_torch.launch import serve
+    from repro_torch.runtime import (BreakerConfig, Calibration, EngineTarget,
+                                     FaultConfig, FaultyTarget, RuntimeConfig, WallClock,
+                                     measure_engine, run_replay)
+    from repro_torch.serving.engine import InferenceEngine, ReplicaPool
+    from repro_torch.simulation.arrivals import PoissonProcess
+
+    cfg = get_config("qwen2-0.5b")
+    ecfg = serve.engine_config(full_size=True, gen_len=16)
+    t0 = time.monotonic()
+    pool = ReplicaPool(cfg, ecfg, n_replicas=LIVE_REPLICAS, seed=0, device="cuda")
+    pool.warmup(128)
+    engines = pool.replicas
+    samples = serve.time_samples(engines[0], 128)
+    _, slo_s = serve.offered_load(samples)
+    log(f"[live] {cfg.name}, {LIVE_REPLICAS} replicas sharing one copy of the weights, "
+        f"warm at prompt 128 in {time.monotonic() - t0:.1f} s; (2, 128) samples ms: "
+        + ", ".join(f"{1e3 * t:.1f}" for t in samples)
+        + f" -> SLO {1e3 * slo_s:.1f} ms (wall clock)")
+    # the same engine outside the pool, on the same weights, beside replica 0
+    solo = InferenceEngine(cfg, ecfg, params=engines[0].params, device="cuda")
+    for _ in range(2):
+        solo.generate(np.zeros((2, 128), np.int32))
+    solo_samples = serve.time_samples(solo, 128)
+    del solo
+    log(f"[live] (2, 128) median: pool replica 0 {1e3 * statistics.median(samples):.1f} ms, "
+        f"a standalone engine on the same weights {1e3 * statistics.median(solo_samples):.1f} ms")
+    one, both, cpu_one, cpu_both = pool_capacity(pool, 128)
+    # the offered-load rule (80% busy at batch 2) over what the pool measurably
+    # serves with a thread a replica, not over twice one replica
+    rate = 0.8 * 2 * both
+    log(f"[live] pool capacity at (2, 128): one replica alone {one:.2f} batches/s, all "
+        f"{LIVE_REPLICAS} at once, a thread each, {both:.2f} batches/s ({both / one:.2f}x) "
+        f"-> rate {rate:.3f}/s; host CPU time a generate(): alone {1e3 * cpu_one:.1f} ms "
+        f"of {1e3 / one:.1f} ms wall, at once {1e3 * cpu_both:.1f} ms of "
+        f"{1e3 * LIVE_REPLICAS / both:.1f} ms wall (mean over threads); every call's tokens "
+        f"exactly replica 0's alone")
+    profile_pool(torch, pool, 128)
+    after = serve.time_samples(engines[0], 128)
+    log(f"[live] (2, 128) median on pool replica 0 after the threaded probes: "
+        f"{1e3 * statistics.median(after):.1f} ms (before: {1e3 * statistics.median(samples):.1f})")
+    sla = SLAConfig(slo_target=slo_s)
+    kwargs = {"bucketing": "pow2",
+              "optimizer": OptimizerConfig(update_interval=5.0, initial_max_bs=2)}
+    launches: dict = {}
+
+    # MLProxy on the wall clock
+    clk = WallClock()
+    target = recording_target(pool, prompt_len=128, gen_len=ecfg.gen_len)
+    res, counts, wall, prefills, steps = counted_run(torch, engines, lambda: run_replay(
+        policy="mlproxy", sla=sla, arrivals=PoissonProcess(rate=rate, duration=LIVE_SECONDS),
+        duration=LIVE_SECONDS, target=EngineTarget(target, clock=clk), clock=clk, seed=0,
+        policy_kwargs=kwargs))
+    add_counts(launches, counts)
+    s, cons = res.summary, res.conservation
+    by_replica = [sum(1 for r, *_ in target.log if r == i) for i in range(LIVE_REPLICAS)]
+    log(f"[live] MLProxy, {LIVE_SECONDS:.0f} s of arrivals: {cons['completed']} of "
+        f"{cons['submitted']} completed, avg batch {s['avg_batch_size']:.2f}, p95 "
+        f"{1e3 * s['p95']:.1f} ms (SLO {1e3 * slo_s:.1f}), violations "
+        f"{s['violation_pct']:.2f}%, {len(target.log)} batches (per replica {by_replica}), "
+        f"{len(overlapping(target.log))} overlapped a batch on the other replica; "
+        f"wall {wall:.1f} s")
+    log(f"[live] MLProxy: {prefills} prefills, {steps} decode steps; kernel launches {counts}")
+    check_conserved(cons, "live MLProxy")
+    if cons["completed"] != cons["submitted"]:
+        raise AssertionError(f"live MLProxy: not every request completed: {cons}")
+    served = [r for _, _, _, reqs, *_ in target.log for r in reqs]
+    if len(served) != cons["completed"]:
+        raise AssertionError(f"live MLProxy: {len(served)} requests served, "
+                             f"{cons['completed']} completed")
+    for r in served:
+        toks = np.asarray(r.payload)
+        if toks.shape != (ecfg.gen_len,) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {r.req_id}: bad tokens {toks!r}")
+    if not s["avg_batch_size"] > 1.0:
+        raise AssertionError(f"live MLProxy formed no batches above 1 "
+                             f"(avg {s['avg_batch_size']})")
+    if not all(by_replica):
+        raise AssertionError(f"a replica served no batch: {by_replica}")
+    log(f"[live] MLProxy: served alone again, exact: {replay_check(engines[0], target.log)}")
+
+    # chaos: crashes, partial batches and stragglers, retried behind a breaker
+    # (no preempt or timeout: they cancel the await, not the worker thread)
+    clk = WallClock()
+    inner = EngineTarget(recording_target(pool, prompt_len=128, gen_len=ecfg.gen_len),
+                         clock=clk)
+    chaos = FaultyTarget(inner, clk, FaultConfig(crash_prob=0.05, partial_prob=0.05,
+                                                 straggler_prob=0.05, seed=0))
+    res_c, counts, wall, prefills, steps = counted_run(torch, engines, lambda: run_replay(
+        policy="mlproxy", sla=sla, arrivals=PoissonProcess(rate=rate, duration=CHAOS_SECONDS),
+        duration=CHAOS_SECONDS, target=chaos, clock=clk, seed=0, policy_kwargs=kwargs,
+        config=RuntimeConfig(max_retries=2, breaker=BreakerConfig())))
+    add_counts(launches, counts)
+    sc, cons_c = res_c.summary, res_c.conservation
+    log(f"[live] chaos, {CHAOS_SECONDS:.0f} s of arrivals: {cons_c['completed']} of "
+        f"{cons_c['submitted']} completed, {cons_c['failed']} failed, {cons_c['shed']} shed, "
+        f"{cons_c['timed_out']} timed out; injected {chaos.injected}; retried batches "
+        f"{cons_c['retried_batches']}, recovered {cons_c['recovered_batches']}, retry "
+        f"budget exhausted {cons_c['retry_exhausted']}; breaker "
+        f"{sc['endpoints']['ep']['breaker']}; avg batch {sc['avg_batch_size']:.2f}, p95 "
+        f"{1e3 * sc['p95']:.1f} ms, violations {sc['violation_pct']:.2f}%; wall {wall:.1f} s")
+    log(f"[live] chaos: {prefills} prefills, {steps} decode steps; kernel launches {counts}")
+    check_conserved(cons_c, "live chaos")
+
+    # the calibration bridge: idle card against the live run's bucket samples
+    idle = {b.bucket: b for b in measure_engine(engines[0], prompt_len=128,
+                                                gen_len=ecfg.gen_len).buckets}
+    live = {b.bucket: b for b in Calibration.from_samples(res.bucket_samples).buckets}
+    log("[live] calibration, bucket: idle mean ms (n) | live mean ms (n, p95) | live/idle")
+    for b in sorted(set(idle) | set(live)):
+        i, l_ = idle.get(b), live.get(b)
+        ratio = f"{l_.mean_s / i.mean_s:.2f}" if i and l_ else "-"
+        log(f"[live]   {b:2d}: " + (f"{1e3 * i.mean_s:.1f} ({i.n})" if i else "-") + " | "
+            + (f"{1e3 * l_.mean_s:.1f} ({l_.n}, {1e3 * l_.p95_s:.1f})" if l_ else "-")
+            + f" | {ratio}")
+    del pool, engines, target, inner, chaos
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -960,6 +1298,9 @@ def main() -> int:
         t0 = time.monotonic()
         add_counts(launches, phase_serve(torch, arch))
         log(f"[serve] {arch} phase {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    add_counts(launches, phase_live(torch))
+    log(f"[live] phase {time.monotonic() - t0:.1f} s")
     missing = [name for name in rows if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on a serving path: {missing}")

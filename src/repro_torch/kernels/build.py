@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
@@ -30,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # replicas may launch a kernel first from two threads
 
 
 def nvcc_path() -> str:
@@ -106,7 +108,10 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        with _load_lock:  # one build per library (its temporary file is named by pid)
+            lib = _loaded.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                _loaded[name] = lib
     return lib

@@ -10,9 +10,13 @@ layer's cache (B, S, Hkv, D), the mLSTM's q/k/v (B, S, H, D) and gates
 * a CPU tensor runs the plain PyTorch version from ``kernels/ref.py``.
 
 The counts let a run show that its main path went through the kernels;
-:func:`reset_launches` sets them to 0.
+:func:`reset_launches` sets them to 0. They stay exact when several
+threads launch at once (replicas of a pool serving from executor threads):
+every change to a count holds one lock.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -21,6 +25,16 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mlstm_attention as _ml
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a read, an add and a write, which
+    two threads could otherwise interleave and lose a launch)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def _no_kernel(t: torch.Tensor, what: str):
@@ -32,7 +46,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) → (B, S, Hq, D)."""
     if q.device.type == "cuda":
         out = _fa.flash_attention_fwd(q, k, v, causal=causal)
-        flash_attention.launches += 1
+        count_launch(flash_attention)
         return out
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal)
@@ -51,7 +65,7 @@ def decode_attention(q, k_cache, v_cache, cache_len):
         if lengths.dtype != torch.int32:
             lengths = lengths.to(torch.int32)
         out = _dec.decode_attention_fwd(q, k_cache, v_cache, lengths)
-        decode_attention.launches += 1
+        count_launch(decode_attention)
         return out
     if q.device.type == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, cache_len)
@@ -68,7 +82,7 @@ def mlstm_attention(q, k, v, log_i, log_f, *, chunk: int = 512):
     temporaries); the kernel tiles on its own and computes the same y."""
     if q.device.type == "cuda":
         out = _ml.mlstm_attention_fwd(q, k, v, log_i, log_f)
-        mlstm_attention.launches += 1
+        count_launch(mlstm_attention)
         return out
     if q.device.type == "cpu":
         return ref.mlstm_attention(q, k, v, log_i, log_f, chunk=chunk)
@@ -86,7 +100,7 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
     ones: the same y up to rounding."""
     if x.device.type == "cuda":
         out = _ssd.ssd_scan_fwd(x, dt, a, b, c, chunk=chunk)
-        ssd_scan.launches += 1
+        count_launch(ssd_scan)
         return out
     if x.device.type == "cpu":
         return ref.ssd_scan(x, dt, a, b, c, chunk=chunk)
@@ -101,9 +115,11 @@ WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decode_atten
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    with _count_lock:
+        for fn in WRAPPERS.values():
+            fn.launches = 0
 
 
 def launches() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    with _count_lock:
+        return {name: fn.launches for name, fn in WRAPPERS.items()}

@@ -329,6 +329,40 @@ class TestEngineOnCard:
         assert took < 1.0, f"replica 1 took {took:.3f} s beside a 2 s sleep on replica 0"
         np.testing.assert_array_equal(got, alone)
 
+    def test_concurrent_pool_callers_overlap_on_both_replicas(self, cuda):
+        """Threads calling ``ReplicaPool.generate`` at once land on both
+        replicas (each on its own stream), get the tokens one engine gives
+        alone, and every kernel launch is counted."""
+        import threading
+
+        from repro_torch.serving.engine import ReplicaPool
+
+        eng = self._engine("qwen2-0.5b", cuda, max_len=32)
+        pool = ReplicaPool(eng.cfg, eng.ecfg, n_replicas=2, params=eng.params, device=cuda)
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, eng.cfg.vocab_size, (2, 16)).astype(np.int32)
+                   for _ in range(8)]
+        want = [eng.generate(p)[0] for p in prompts]
+        got, replicas = [None] * 8, [None] * 8
+
+        def call(i):
+            got[i], timing = pool.generate(prompts[i])
+            replicas[i] = timing["replica"]
+
+        tops.reset_launches()
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60.0)
+        assert not any(t.is_alive() for t in threads)
+        assert set(replicas) == {0, 1}
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        steps = sum(r.decode_steps for r in pool.replicas)
+        assert tops.launches()["flash_attention"] == eng.cfg.num_layers * 8
+        assert tops.launches()["decode_attention"] == eng.cfg.num_layers * steps
+
 
 def _tree_to(tree, device):
     if isinstance(tree, dict):
