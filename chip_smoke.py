@@ -38,16 +38,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    starts, scaling, cost), every batch executed on the card; every
    arrival must complete with an average batch above 1. qwen2-0.5b is
    also served under the passthrough policy, the paper's baseline, and
-   its cost and violations are printed beside MLProxy's. Each serving run
-   sets the launch counts to 0 just before it and reads them just after:
-   each model's kernels must have run once per layer (for Zamba2, once per
-   Mamba layer and once per shared-block application) for every prefill
-   and, for the attention models, every decode step; the ``kernels`` line
-   sums them over the runs. Then: the fused decode loop must give the
-   per-token loop's tokens; a pooled cache must give a batch the tokens a
-   fresh cache gives it; and, for qwen2-0.5b, a decode past ``max_len``
-   must give tokens with no device assert, and one replica's
-   ``generate()`` must not wait for another replica's stream.
+   its cost and violations are printed beside MLProxy's. The engine runs
+   each batch as two replayed CUDA graphs, its prefill's and its decode
+   loop's, captured at warmup. Each serving run sets the launch counts to
+   0 just before it and reads them just after: every batch must have
+   replayed both graphs, and each model's kernels must have run once per
+   layer (for Zamba2, once per Mamba layer and once per shared-block
+   application) for every prefill and, for the attention models, every
+   decode step; the ``kernels`` line sums them over the runs. Then: the
+   replayed graphs must give the eager per-token loop's tokens, for one
+   batch and for two through the pooled cache; a pooled cache must give a
+   batch the tokens a fresh cache gives it; for qwen2-0.5b, a decode past
+   ``max_len`` must give tokens with no device assert, eager and
+   replayed, and a replica that captures a new key must not wait for
+   another replica's stream. Then a bucket-32 ``generate()`` under
+   torch.profiler on the graphs (the port's kernels by name must equal the
+   counted launches), the device time of the prefill graph apart from the
+   decode-loop graph (CUDA events), the graph pool's size and the peak
+   memory, and the same profile of the eager fused loop (a fresh cache a
+   call, so no graph) on the same weights.
 6. Live runtime: two replicas of full-width qwen2-0.5b (one copy of the
    weights, a CUDA stream each) behind the wall-clock ``AsyncProxyServer``
    (``repro_torch.runtime``): ``run_replay`` with Poisson arrivals at
@@ -55,7 +64,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    each batch on an executor thread. Every request must be conserved and
    complete with its 16 tokens, the average batch must be above 1 and
    both replicas must serve; it prints p95, violations and how many
-   batches overlapped one on the other replica. Then 10 s behind
+   batches overlapped one on the other replica (every batch must replay
+   its two graphs). Then 10 s behind
    ``FaultyTarget`` (crashes, partial batches, stragglers; 2 retries, a
    circuit breaker), which must conserve every request; then
    ``measure_engine`` on the idle card beside the live run's per-bucket
@@ -665,14 +675,16 @@ def _tree_to(tree, device):
 def counted_run(torch, engines, fn):
     """Run ``fn()`` (one serving path over ``engines``, one or more
     replicas) with every kernel's launch count set to 0 just before and
-    read just after; fail unless the path made prefills and decode steps
-    and launched each kernel exactly as often as those prefills and steps
+    read just after; fail unless the path made prefills and decode steps,
+    replayed a prefill graph and a decode-loop graph for every batch, and
+    launched each kernel exactly as often as those prefills and steps
     need, summed over the engines. Returns (fn's result, launches, wall
     seconds, prefills, decode steps)."""
     from repro_torch.kernels import ops
 
     prefills0 = sum(e.prefill_calls for e in engines)
     steps0 = sum(e.decode_steps for e in engines)
+    replays0 = sum(e.graph_replays for e in engines)
     ops.reset_launches()
     t0 = time.monotonic()
     out = fn()
@@ -681,8 +693,12 @@ def counted_run(torch, engines, fn):
     launches = ops.launches()
     prefills = sum(e.prefill_calls for e in engines) - prefills0
     steps = sum(e.decode_steps for e in engines) - steps0
+    replays = sum(e.graph_replays for e in engines) - replays0
     if prefills == 0 or steps == 0:
         raise AssertionError("the serving run made no prefill or no decode step")
+    if replays != 2 * prefills:  # every batch: its prefill graph, then its loop graph
+        raise AssertionError(f"{replays} CUDA graph replays for {prefills} prefills: "
+                             "a batch ran eagerly")
     want = expected_launches(engines[0].cfg, prefills, steps)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want} for {prefills} "
@@ -793,48 +809,160 @@ def phase_serve(torch, arch: str) -> dict:
             f"{m['cold_starts']:.0f} vs {pt['cold_starts']:.0f} "
             f"({m['submitted_requests']:.0f} and {pt['submitted_requests']:.0f} arrivals)")
 
-    # full width: the fused loop and the per-token loop give the same tokens
+    # full width: the replayed graphs give the eager per-token loop's
+    # tokens, for one batch and for two through the pooled cache
     ref_engine = InferenceEngine(cfg, dataclasses.replace(ecfg, fused_decode=False),
                                  params=engine.params, device="cuda")
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
-    a, _ = engine.generate(prompts)
-    b_, _ = ref_engine.generate(prompts)
-    if not np.array_equal(a, b_):
-        raise AssertionError("fused and per-token decode disagree at full width")
-    log("[serve] fused == per-token decode on 4 full-width prompts")
-    del ref_engine
-    # the pooled cache after another batch gives a batch a fresh cache's tokens
+    check_graph_tokens(torch, engine, ref_engine, prompts, "4 full-width prompts")
     rng = np.random.default_rng(3)
     first, second = (rng.integers(0, cfg.vocab_size, (3, 128)).astype(np.int32)
                      for _ in range(2))
-    engine.generate(first)
-    got, _ = engine.generate(second)
+    check_graph_tokens(torch, engine, ref_engine, first, "batch 1 of 2 in bucket 4")
+    got = check_graph_tokens(torch, engine, ref_engine, second, "batch 2 of 2 in bucket 4")
+    del ref_engine
+    # the pooled cache after another batch gives a batch a fresh cache's tokens
     fresh = InferenceEngine(cfg, dataclasses.replace(ecfg, cache_pool=False),
                             params=engine.params, device="cuda")
     want_toks, _ = fresh.generate(second)
     if not np.array_equal(got, want_toks):
         raise AssertionError("a pooled cache changed the next batch's tokens")
-    log("[serve] pooled cache == fresh cache for a batch after a different batch")
+    log("[serve] pooled cache (graphs) == fresh cache (eager) for a batch after a "
+        "different batch")
     del fresh
     if arch == PASSTHROUGH_ARCH:
         check_max_len_overflow(torch, engine)
         check_replica_streams(torch, engine)
     log(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-        f"(torch.cuda.max_memory_allocated, this phase)")
-    profile_generate(torch, engine, cfg)
+        f"(torch.cuda.max_memory_allocated, this phase); {len(engine.graphs)} graphs "
+        f"in replica 0's pool of {graph_pool_gb(torch, engine)}")
+    graph = profile_generate(torch, engine, cfg, "graphs")
+    split_ms = graph_split_ms(torch, engine)
+    log(f"[profile] graphs, bucket 32 x 128 prompt: prefill graph {split_ms[0]:.3f} ms, "
+        f"decode-loop graph {split_ms[1]:.3f} ms ({engine.ecfg.gen_len - 1} steps, "
+        f"{split_ms[1] / (engine.ecfg.gen_len - 1):.3f} ms a step) on the device "
+        "(CUDA events around the two replays, median of 5)")
     # the simulator holds the engine through its latency model, in a
     # reference cycle: only a collection frees the model's memory
+    params = engine.params
     del pool, engine, sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the eager fused loop beside it, without graphs: a fresh cache a call
+    # (no graph is bound to one), on the same weights
+    eager = InferenceEngine(cfg, dataclasses.replace(ecfg, cache_pool=False), params=params,
+                            device="cuda")
+    base = profile_generate(torch, eager, cfg, "eager (fresh cache a call)")
+    log(f"[profile] {cfg.name} bucket 32: graphs against eager: wall "
+        f"{graph['wall_ms']:.2f} / {base['wall_ms']:.2f} ms ({base['wall_ms'] / graph['wall_ms']:.2f}x), "
+        f"busy {graph['busy_ms']:.2f} / {base['busy_ms']:.2f} ms, idle share "
+        f"{graph['idle']:.3f} / {base['idle']:.3f}")
+    del eager, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
+def check_graph_tokens(torch, engine, ref_engine, prompts, what: str):
+    """``engine.generate(prompts)`` must replay its two graphs and give
+    exactly the eager per-token ``ref_engine``'s tokens. On a difference it
+    first prints where: the step, the top-2 logit margin of the eager
+    logits there, and the prefill logits of a captured graph against eager
+    ones; then it fails. Returns the tokens."""
+    import numpy as np
+
+    replays = engine.graph_replays
+    got, _ = engine.generate(prompts)
+    want, _ = ref_engine.generate(prompts)
+    if engine.graph_replays - replays != 2:
+        raise AssertionError(f"{what}: {engine.graph_replays - replays} graph replays, not 2")
+    if not np.array_equal(got, want):
+        explain_token_difference(torch, engine, prompts, got, want)
+        raise AssertionError(f"{what}: graph replay and per-token eager decode disagree")
+    log(f"[serve] graph replay == per-token eager decode, {what}")
+    return got
+
+
+def explain_token_difference(torch, engine, prompts, got, want) -> None:
+    """Print the first differing (row, step), the top-2 margin of eager
+    teacher-forced logits there, and the prefill logits of a graph captured
+    on this engine against eager ones (bf16 tolerance 2e-2)."""
+    import numpy as np
+
+    row, step = (int(i) for i in np.argwhere(got != want)[0])
+    n, plen_raw = prompts.shape
+    bucket = next(b for b in engine.ecfg.batch_buckets if n <= b)
+    plen = next(p for p in engine.ecfg.prompt_buckets if plen_raw <= p)
+    padded = np.zeros((bucket, plen), np.int32)
+    padded[:n, plen - plen_raw:] = prompts
+    tokens = torch.from_numpy(padded).cuda()
+    model, params, rope = engine.model, engine.params, engine.rope
+
+    def fresh():
+        return model.init_cache(bucket, engine.ecfg.max_len, device="cuda")
+
+    with torch.inference_mode(), torch.cuda.stream(engine.stream):
+        cache = fresh()
+        logits, _ = model.prefill(params, tokens, cache, rope=rope)
+        eager_logits = logits
+        for i in range(step):  # teacher-forced on the eager tokens
+            forced = torch.zeros((bucket, 1), dtype=torch.int32, device="cuda")
+            forced[:n, 0] = torch.from_numpy(want[:, i]).cuda()
+            logits, _ = model.decode_step(params, forced, cache, rope=rope)
+        top2 = logits[row, -1].topk(2).values
+        graph_cache = fresh()
+        g = engine._capture(lambda t: model.prefill(params, t, graph_cache, rope=rope)[0],
+                            tokens.clone(), graph_cache)
+        g.graph.replay()
+        engine.stream.synchronize()
+    diff = float((g.out - eager_logits).abs().max())
+    log(f"[serve] token difference at row {row}, step {step}: graph {got[row, step]}, "
+        f"eager {want[row, step]}; eager top-2 logit margin there "
+        f"{float(top2[0] - top2[1]):.4e}; prefill logits, graph against eager: max abs "
+        f"diff {diff:.3e} (bf16 tolerance 2e-2)")
+
+
+def graph_pool_gb(torch, engine) -> str:
+    """The bytes of the segments in ``engine``'s graph memory pool (from
+    ``torch.cuda.memory_snapshot``)."""
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return "not measured (no pool ids in the memory snapshot)"
+    pool = tuple(engine.graph_pool)
+    size = sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) == pool)
+    return f"{size / 1e9:.3f} GB"
+
+
+def graph_split_ms(torch, engine, bucket: int = 32, plen: int = 128, samples: int = 5):
+    """Device ms of the prefill graph and of the decode-loop graph of
+    ``(bucket, plen)``, each replayed alone between CUDA events (a sleep
+    kernel first, so the host enqueues ahead of the device); medians."""
+    steps = engine._gen_steps(engine.ecfg.gen_len, plen)
+    prefill = engine.graphs[("prefill", bucket, plen)]
+    loop = engine.graphs[("fused", bucket, steps)]
+    times = []
+    with torch.inference_mode(), torch.cuda.stream(engine.stream):
+        for _ in range(samples):
+            if engine.model.recurrent:  # prefill reads the state: start it afresh
+                engine.model.reset_cache(prefill.cache)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda._sleep(2_000_000)
+            ev[0].record()
+            prefill.graph.replay()
+            ev[1].record()
+            loop.graph.replay()
+            ev[2].record()
+            ev[2].synchronize()
+            times.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    return statistics.median(t[0] for t in times), statistics.median(t[1] for t in times)
+
+
 def check_max_len_overflow(torch, engine) -> None:
     """plen + gen_len - 1 > max_len at full width: the engine decodes past
     its cache's end as the JAX engine does (the write clamped onto the last
-    row), with no device-side assert; until the cache is full it gives the
-    tokens of an engine with room, and its fused and per-token loops agree."""
+    row), with no device-side assert, in its first (eager) run and in its
+    replayed graphs; until the cache is full it gives the tokens of an
+    engine with room, and its graphs give the per-token loop's tokens."""
     import numpy as np
 
     from repro_torch.serving.engine import InferenceEngine
@@ -846,8 +974,13 @@ def check_max_len_overflow(torch, engine) -> None:
     per_token = InferenceEngine(cfg, dataclasses.replace(short, fused_decode=False),
                                 params=engine.params, device="cuda")
     prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, plen)).astype(np.int32)
-    got, _ = over.generate(prompts)
+    got, _ = over.generate(prompts)  # eager, then the keys' captures
     torch.cuda.synchronize()  # a device-side assert would surface here
+    replayed, _ = over.generate(prompts)
+    torch.cuda.synchronize()
+    if over.graph_replays != 2 or not np.array_equal(replayed, got):
+        raise AssertionError(f"max_len overflow: {over.graph_replays} graph replays; "
+                             f"replayed {replayed} against eager {got}")
     room, _ = engine.generate(prompts)
     same = short.max_len - plen + 1  # tokens decoded before the cache is full
     if got.shape != (2, gen) or got.min() < 0 or got.max() >= cfg.vocab_size:
@@ -858,88 +991,130 @@ def check_max_len_overflow(torch, engine) -> None:
     if not np.array_equal(per_token.generate(prompts)[0], got):
         raise AssertionError("max_len overflow: fused and per-token decode disagree")
     log(f"[serve] max_len {short.max_len} < plen + gen_len - 1 = {plen + gen - 1}: tokens "
-        f"and no device assert; the first {same} equal an engine with room's, fused == "
-        "per-token")
+        f"and no device assert, eager and replayed alike; the first {same} equal an engine "
+        "with room's, graph replay == per-token eager")
 
 
 def check_replica_streams(torch, engine) -> None:
     """Two replicas on one card overlap: with replica 0's stream held by a
-    ~2 s sleep kernel, replica 1's generate() returns well before it ends,
-    with the tokens it gives alone."""
+    ~4 s sleep kernel, replica 1 first serves a key it has not seen (an
+    eager run, then the key's two CUDA-graph captures), then replays it;
+    both return well before the sleep ends, with the tokens the per-token
+    eager loop gives."""
     import numpy as np
 
-    from repro_torch.serving.engine import ReplicaPool
+    from repro_torch.serving.engine import InferenceEngine, ReplicaPool
 
     pool = ReplicaPool(engine.cfg, engine.ecfg, n_replicas=2, params=engine.params,
                        device="cuda")
     r0, r1 = pool.replicas
+    per_token = InferenceEngine(engine.cfg, dataclasses.replace(engine.ecfg, fused_decode=False),
+                                params=engine.params, device="cuda")
     prompts = np.random.default_rng(5).integers(0, engine.cfg.vocab_size,
                                                 (2, 128)).astype(np.int32)
-    r1.generate(prompts)
-    alone, _ = r1.generate(prompts)
-    sleep_ms = 2000.0
+    alone, _ = per_token.generate(prompts)
+    sleep_ms = 4000.0
     cycles = int(sleep_ms * 1e8 / device_ms(torch, lambda: torch.cuda._sleep(100_000_000),
                                             samples=3))
     with torch.cuda.stream(r0.stream):
         torch.cuda._sleep(cycles)
     t0 = time.monotonic()
-    got, timing = r1.generate(prompts)
+    captured, _ = r1.generate(prompts)
+    captured_s = time.monotonic() - t0
+    replayed, timing = r1.generate(prompts)
     returned_s = time.monotonic() - t0
     held = not r0.stream.query()
     r0.stream.synchronize()
     held_s = time.monotonic() - t0
-    log(f"[serve] replica streams: replica 1's generate() took {1e3 * returned_s:.1f} ms "
-        f"(measured {1e3 * timing['latency_s']:.1f} ms) while replica 0's stream held a "
-        f"{sleep_ms:.0f} ms sleep (done after {1e3 * held_s:.1f} ms)")
+    log(f"[serve] replica streams: replica 1's first generate() of a new key (eager, then "
+        f"{len(r1.graphs)} captures) took {1e3 * captured_s:.1f} ms, its replay "
+        f"{1e3 * (returned_s - captured_s):.1f} ms (measured {1e3 * timing['latency_s']:.1f} "
+        f"ms) while replica 0's stream held a {sleep_ms:.0f} ms sleep (done after "
+        f"{1e3 * held_s:.1f} ms)")
     if not held or returned_s > 0.5 * sleep_ms / 1e3:
         raise AssertionError(f"replica 1 waited for replica 0's stream ({returned_s:.3f} s, "
                              f"replica 0 still busy: {held})")
-    if not np.array_equal(got, alone):
+    if r1.graph_replays != 2 or len(r1.graphs) != 2:
+        raise AssertionError(f"replica 1: {len(r1.graphs)} graphs, {r1.graph_replays} replays")
+    if not (np.array_equal(captured, alone) and np.array_equal(replayed, alone)):
         raise AssertionError("replica 1 gave other tokens beside a busy replica 0")
 
 
-def profile_generate(torch, engine, cfg) -> None:
+#: name prefix of each port kernel's entry functions -> its wrapper
+KERNEL_PREFIXES = {"flash_": "flash_attention", "decode_": "decode_attention",
+                   "mlstm_": "mlstm_attention", "ssd_": "ssd_scan"}
+
+
+def port_kernel(name: str):
+    """The wrapper whose kernel a profiled device kernel is, or None."""
+    import re
+
+    m = re.search(r"\(anonymous namespace\)::([a-z_]+_kernel)\b", name)
+    if not m or "at::" in name:
+        return None
+    return next((w for p, w in KERNEL_PREFIXES.items() if m.group(1).startswith(p)), None)
+
+
+def profile_generate(torch, engine, cfg, what: str) -> dict:
     """Where one full-width batch's time goes: torch.profiler over one
-    generate() at the largest bucket; device busy share and kernel time by
-    name."""
+    generate() at the largest bucket; kernels per prefill-or-step, device
+    busy time and idle share, kernel time by name. Fails if the port's
+    kernels the profiler saw differ by name from the launches the wrappers
+    counted (a replay adds what its graph recorded at capture). Returns
+    the unprofiled wall ms, busy ms and idle share."""
     import collections
 
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import ops
+
     prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (32, 128)).astype(np.int32)
-    _, timing = engine.generate(prompts)
+    for _ in range(2):  # a new engine's first use of the key, then a warm run
+        _, timing = engine.generate(prompts)
     steps0 = engine.decode_steps
+    counted0 = ops.launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         engine.generate(prompts)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0)
+    counted = {k: n - counted0[k] for k, n in ops.launches().items()}
     steps = engine.decode_steps - steps0
+    unprofiled_ms = 1e3 * timing["latency_s"]
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    log(f"[profile] generate(32 x 128 prompt, {engine.ecfg.gen_len} tokens): "
-        f"{1e3 * timing['latency_s']:.2f} ms unprofiled, {wall_ms:.2f} ms under the profiler, "
+    log(f"[profile] {cfg.name}, {what}: generate(32 x 128 prompt, {engine.ecfg.gen_len} "
+        f"tokens): {unprofiled_ms:.2f} ms unprofiled, {wall_ms:.2f} ms under the profiler, "
         f"{steps} decode steps")
     if not kernels:
         log("[profile] torch.profiler recorded no device time: busy share not measured")
-        return
+        return {"wall_ms": unprofiled_ms, "busy_ms": float("nan"), "idle": float("nan")}
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name = collections.Counter()
     count = collections.Counter()
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
         count[e.name] += 1
+    seen = collections.Counter()
+    for name, n in count.items():
+        wrapper = port_kernel(name)
+        if wrapper:
+            seen[wrapper] += n
+    if {k: n for k, n in counted.items() if n} != dict(seen):
+        raise AssertionError(f"{what}: profiled port kernels {dict(seen)} != counted "
+                             f"launches {counted}")
+    idle = 1 - busy_ms / unprofiled_ms
     log(f"[profile] {len(kernels)} device kernels ({len(kernels) / (steps + 1):.0f} per "
         f"prefill-or-step), busy {busy_ms:.2f} ms of {wall_ms:.2f} ms: device idle share "
-        f"{1 - busy_ms / wall_ms:.3f} (against the unprofiled "
-        f"{1e3 * timing['latency_s']:.2f} ms: {1 - busy_ms / (1e3 * timing['latency_s']):.3f})")
+        f"{1 - busy_ms / wall_ms:.3f} (against the unprofiled {unprofiled_ms:.2f} ms: "
+        f"{idle:.3f}); port kernels by name == counted launches: {dict(seen)}")
     top = by_name.most_common(8)
     # and the port's own kernels wherever they rank
-    top += [(n, ms) for n, ms in by_name.items() if n.startswith("void (anonymous namespace)::")
-            and "at::" not in n and n not in dict(top)]
+    top += [(n, ms) for n, ms in by_name.items() if port_kernel(n) and n not in dict(top)]
     for name, ms in top:
         log(f"[profile]   {ms:8.3f} ms  {count[name]:6d}x  {name[:90]}")
+    return {"wall_ms": unprofiled_ms, "busy_ms": busy_ms, "idle": idle}
 
 
 # ------------------------------------------------------------ live runtime
@@ -1065,8 +1240,9 @@ def union_length(intervals) -> float:
     return total
 
 
-#: the CUDA runtime calls by which the host launches a kernel
-LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+#: the CUDA runtime calls by which the host launches a kernel or a graph
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch")
 
 
 def profile_pool(torch, pool, prompt_len: int) -> None:
@@ -1074,7 +1250,7 @@ def profile_pool(torch, pool, prompt_len: int) -> None:
     (2, ``prompt_len``) ``generate()`` on replica 0 of the idle pool, then
     one on each replica at once, a thread each. For each: wall, device busy
     (the union of kernel intervals over every stream), the device's idle
-    share, and the host's kernel-launch calls (CUPTI's runtime records,
+    share, and the host's kernel- and graph-launch calls (CUPTI's runtime records,
     which do not tell threads apart): their count, rate and the median gap
     between two of them."""
     import statistics as st

@@ -13,9 +13,18 @@ The counts let a run show that its main path went through the kernels;
 :func:`reset_launches` sets them to 0. They stay exact when several
 threads launch at once (replicas of a pool serving from executor threads):
 every change to a count holds one lock.
+
+Under CUDA-graph capture a wrapper's kernel does not run: it is recorded
+into the graph and runs at each replay, where no wrapper is called. So a
+thread that captures counts its launches in a :func:`recording` of its own
+(not in the shared counts, which another replica's thread may be adding
+to at the same moment), and each replay adds what its graph recorded with
+:func:`add_launches`.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import threading
 
 import torch
@@ -28,13 +37,42 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 
 _count_lock = threading.Lock()
+_capturing = threading.local()  # .launches: this thread's recording, if any
 
 
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches`` (a read, an add and a write, which
-    two threads could otherwise interleave and lose a launch)."""
+    two threads could otherwise interleave and lose a launch) — or, inside
+    a :func:`recording` on this thread, to the recording instead."""
+    recorded = getattr(_capturing, "launches", None)
+    if recorded is not None:
+        recorded[wrapper.__name__] += 1
+        return
     with _count_lock:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, this thread's launches go into the yielded
+    ``Counter`` (by kernel name) and not into the shared counts: what a
+    CUDA graph captured on this thread will launch at each replay. Other
+    threads count as before."""
+    if getattr(_capturing, "launches", None) is not None:
+        raise RuntimeError("launch recordings do not nest")
+    _capturing.launches = collections.Counter()
+    try:
+        yield _capturing.launches
+    finally:
+        _capturing.launches = None
+
+
+def add_launches(counts) -> None:
+    """Add ``counts`` (kernel name -> launches, from a :func:`recording`)
+    to the shared counts: what one replay of a captured graph launched."""
+    with _count_lock:
+        for name, n in counts.items():
+            WRAPPERS[name].launches += n
 
 
 def _no_kernel(t: torch.Tensor, what: str):

@@ -10,11 +10,32 @@ Batches still pad to (batch bucket, prompt bucket) slots: the proxy's
 monitor keys its latency windows by the padded bucket size, and the
 per-bucket KV pool is what the kernels read.
 
+* **Compiled programs as CUDA graphs** (on the card, with ``fused_decode``
+  and ``cache_pool`` on, the defaults): the JAX engine runs a batch as two
+  compiled programs, prefill per (bucket, plen) and the whole greedy loop
+  per (bucket, steps). Here each of those keys is one captured CUDA graph:
+  ``generate()`` copies the padded prompt into the prefill graph's static
+  token buffer, replays it, copies its first token into the loop graph's
+  static input, replays that, and reads the tokens back once. A key is
+  captured at its first use, right after an eager run of the same key
+  (which loads every kernel and sizes every workspace the capture
+  records); ``warmup()`` runs each key twice, so it pays the capture as
+  the JAX engine pays its compile there. ``compile_count`` counts the
+  same keys as before. A graph is bound to the pooled cache of its
+  bucket, which never moves and is updated in place. A batch with a fresh
+  cache (``cache_pool=False``, or a pool miss, which also drops the
+  bucket's graphs) runs eagerly: that is not a fallback, since a graph
+  would read the wrong tensors. A capture runs on the engine's own stream
+  and waits for no other (not ``torch.cuda.graph``, which synchronises the
+  whole device on entry); the engine's graphs share one memory pool, never
+  another engine's. A capture or replay that fails raises: nothing goes
+  back to the eager loop. The xLSTM cache reset stays eager, at checkout.
 * **Fused decode** (``EngineConfig.fused_decode``, default on): the greedy
   loop keeps every token on the device and reads them back once, with the
   final ``.cpu()``; no host sync per step. ``fused_decode=False`` is the
-  per-token reference loop, which brings each token to the host. Both give
-  the same tokens (greedy argmax over the same logits).
+  per-token reference loop, which brings each token to the host and runs
+  eagerly on the card too. Both give the same tokens (greedy argmax over
+  the same logits). Off the card the fused loop runs eagerly.
 * **Gen-length bucketing** (``EngineConfig.gen_buckets``): a requested
   length rounds up to the next step bucket; extra tokens are computed and
   sliced off (greedy decoding is prefix-stable).
@@ -62,6 +83,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import rope_frequencies
 from repro_torch.models.model import Model
 
@@ -106,6 +128,19 @@ class EngineConfig:
     cache_pool: bool = True
 
 
+@dataclasses.dataclass
+class CapturedGraph:
+    """One key's compiled program on the card: a CUDA graph, its static
+    input and output (replay reads ``inp`` and overwrites ``out``), the
+    pooled cache it reads and writes, and the kernel launches (by wrapper
+    name) that one replay makes."""
+    graph: Any
+    inp: torch.Tensor
+    out: torch.Tensor
+    cache: Any
+    launches: Dict[str, int]
+
+
 class InferenceEngine:
     """Single-replica engine: bucketed prefill + greedy decode on one device."""
 
@@ -126,13 +161,22 @@ class InferenceEngine:
         #: this engine's CUDA stream (None off the card); it waits once for
         #: the weights and tables made on the default stream
         self.stream: Optional[torch.cuda.Stream] = None
+        #: the memory pool every graph of this engine captures into (None
+        #: off the card, where nothing is captured)
+        self.graph_pool = None
         if self.device.type == "cuda":
             self.stream = torch.cuda.Stream(self.device)
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            self.graph_pool = torch.cuda.graph_pool_handle()
+        #: captured programs by key: ("prefill", bucket, plen) and
+        #: ("fused", bucket, steps)
+        self.graphs: Dict[Tuple, CapturedGraph] = {}
+        #: graph replays (a prefill and a loop each count one)
+        self.graph_replays = 0
         # First use of each shape key: (bucket, plen) for prefill, bucket
         # for the per-token step, (bucket, steps) for the fused loop — the
-        # keys the JAX engine compiles a program for. Eager PyTorch
-        # compiles nothing; the count keeps the JAX engine's meaning.
+        # keys the JAX engine compiles a program for. On the card the
+        # prefill and fused keys each capture one CUDA graph.
         self._seen: set = set()
         self._kv_pool: Dict[int, Any] = {}
         self.compile_count = 0
@@ -160,6 +204,9 @@ class InferenceEngine:
         if cache is None:
             cache = self.model.init_cache(bucket, self.ecfg.max_len, device=self.device)
             self.cache_allocs += 1
+            # a new cache for the bucket (the last one was lost to an
+            # exception mid-batch): its graphs would hold the old one alive
+            self.graphs = {k: g for k, g in self.graphs.items() if k[1] != bucket}
         elif self.model.recurrent:
             self.model.reset_cache(cache)
         return cache
@@ -194,7 +241,9 @@ class InferenceEngine:
         """Run every (batch bucket, prompt bucket) pair twice (what a replica
         does at startup) — or just the pairs of one prompt bucket when
         ``plen`` is given — at the default ``gen_len``, filling the KV pool.
-        Returns the second run's wall seconds per ``(bucket, plen)``.
+        On the card the first run of a key captures its graph, the second
+        replays it. Returns the second run's wall seconds per ``(bucket,
+        plen)``.
 
         Warmup traffic is synthetic: serving ``stats`` are not touched.
         """
@@ -225,6 +274,57 @@ class InferenceEngine:
         with self._on_stream():
             return self._generate(prompts, gen_len)
 
+    def _prefill(self, tokens: torch.Tensor, cache) -> torch.Tensor:
+        """Prefill ``tokens`` into ``cache`` → the first greedy token (B, 1) int32."""
+        logits, _ = self.model.prefill(self.params, tokens, cache, rope=self.rope)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+
+    def _loop(self, first: torch.Tensor, cache, steps: int) -> torch.Tensor:
+        """The fused greedy loop from ``first`` → (B, steps) int32 tokens,
+        all on the device."""
+        out = torch.empty((first.shape[0], steps), dtype=torch.int32, device=self.device)
+        out[:, :1] = first
+        for i in range(1, steps):
+            logits, _ = self.model.decode_step(self.params, out[:, i - 1:i], cache,
+                                               rope=self.rope)
+            out[:, i] = torch.argmax(logits[:, -1], dim=-1)
+        return out
+
+    def _capture(self, fn, inp: torch.Tensor, cache) -> CapturedGraph:
+        """Capture ``fn(inp)`` as a CUDA graph on this engine's stream, into
+        its pool. ``thread_local`` capture refuses an unsafe call from this
+        thread only, so another replica's thread keeps working; the kernel
+        wrappers record their launches on this thread and count nothing."""
+        graph = torch.cuda.CUDAGraph()
+        with kernel_ops.recording() as launches:
+            graph.capture_begin(pool=self.graph_pool, capture_error_mode="thread_local")
+            try:
+                out = fn(inp)
+            finally:
+                graph.capture_end()
+        return CapturedGraph(graph, inp, out, cache, dict(launches))
+
+    def _replay(self, g: CapturedGraph) -> torch.Tensor:
+        g.graph.replay()
+        kernel_ops.add_launches(g.launches)
+        self.graph_replays += 1
+        return g.out
+
+    def _run(self, key: Tuple, inp: torch.Tensor, cache, fn) -> torch.Tensor:
+        """``fn(inp)`` for one key (``inp`` on the host or the device): its
+        graph replayed if it has one bound to ``cache``, after one copy of
+        ``inp`` into the graph's static input; else an eager run, then (when
+        this engine captures) the key's capture, bound to ``cache``."""
+        g = self.graphs.get(key)
+        if g is not None and g.cache is cache:
+            g.inp.copy_(inp)
+            return self._replay(g)
+        inp = inp.to(self.device)
+        out = fn(inp)
+        if self.graph_pool is not None and self.ecfg.fused_decode and self.ecfg.cache_pool:
+            self.graphs[key] = self._capture(fn, inp.clone(), cache)
+        return out
+
     @torch.inference_mode()
     def _generate(self, prompts: np.ndarray, gen_len: Optional[int],
                   ) -> Tuple[np.ndarray, Dict[str, float]]:
@@ -236,22 +336,18 @@ class InferenceEngine:
         t0 = time.perf_counter()  # reprolint: disable=wallclock
         padded = np.zeros((bucket, plen), np.int32)
         padded[:n, plen - plen_raw:] = prompts  # left-pad into the bucket
-        tokens = torch.from_numpy(padded).to(self.device)
 
         cache = self._checkout_cache(bucket)
-        self._first_use(("prefill", bucket, plen))
-        logits, cache = self.model.prefill(self.params, tokens, cache, rope=self.rope)
+        key = ("prefill", bucket, plen)
+        self._first_use(key)
+        first = self._run(key, torch.from_numpy(padded), cache,
+                          lambda t: self._prefill(t, cache))
         self.prefill_calls += 1
-        first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         if self.ecfg.fused_decode and gen_len > 1:
             steps = self._gen_steps(gen_len, plen)
-            self._first_use(("fused", bucket, steps))
-            out = torch.empty((bucket, steps), dtype=torch.int32, device=self.device)
-            out[:, :1] = first
-            for i in range(1, steps):
-                logits, cache = self.model.decode_step(
-                    self.params, out[:, i - 1:i], cache, rope=self.rope)
-                out[:, i] = torch.argmax(logits[:, -1], dim=-1)
+            key = ("fused", bucket, steps)
+            self._first_use(key)
+            out = self._run(key, first, cache, lambda f: self._loop(f, cache, steps))
             self.decode_steps += steps - 1
             result = out[:, :gen_len].cpu().numpy()
         else:

@@ -272,8 +272,10 @@ class TestKernelsOnCard:
 @pytest.mark.cuda
 class TestEngineOnCard:
     """The engine's card-only properties: each replica on its own stream,
-    and a decode past ``max_len`` as the JAX engine does it (CPU parity
-    with the JAX engine is in ``tests/test_torch_engine.py``)."""
+    a decode past ``max_len`` as the JAX engine does it, and each key's
+    prefill and decode loop replayed as a CUDA graph (CPU parity with the
+    JAX engine is in ``tests/test_torch_engine.py``, the graph bookkeeping
+    on the CPU in ``tests/test_torch_graphs.py``)."""
 
     @staticmethod
     def _engine(arch, device, params=None, **kw):
@@ -362,6 +364,85 @@ class TestEngineOnCard:
         steps = sum(r.decode_steps for r in pool.replicas)
         assert tops.launches()["flash_attention"] == eng.cfg.num_layers * 8
         assert tops.launches()["decode_attention"] == eng.cfg.num_layers * steps
+
+
+    @pytest.mark.parametrize("arch", ["qwen2-0.5b", "xlstm-1.3b", "zamba2-1.2b"])
+    def test_graph_replay_matches_per_token_eager(self, cuda, arch):
+        """Batches through the pooled cache of one bucket, each decoding
+        past ``max_len`` (plen + gen_len - 1 = 23 > 20): the first runs
+        eagerly and captures, the others replay both graphs, and every one
+        gives the eager per-token loop's tokens and launches its kernels
+        as often."""
+        eng = self._engine(arch, cuda)
+        ref = self._engine(arch, cuda, params=eng.params, fused_decode=False)
+        rng = np.random.default_rng(3)
+        for i, n in enumerate((2, 2, 1, 2)):
+            prompts = rng.integers(0, eng.cfg.vocab_size, (n, 16)).astype(np.int32)
+            tops.reset_launches()
+            got, _ = eng.generate(prompts)
+            replayed = tops.launches()
+            tops.reset_launches()
+            want, _ = ref.generate(prompts)
+            np.testing.assert_array_equal(got, want, err_msg=f"batch {i}")
+            assert replayed == tops.launches() and sum(replayed.values()) > 0
+        assert set(eng.graphs) == {("prefill", 1, 16), ("fused", 1, 8),
+                                   ("prefill", 2, 16), ("fused", 2, 8)}
+        assert eng.graph_replays == 2 * 2 and eng.compile_count == 4
+
+    def test_capture_does_not_wait_for_another_replicas_stream(self, cuda):
+        """With replica 0's stream held by a ~2 s sleep, replica 1 serves a
+        key it has not seen (an eager run, then both captures) and replays
+        it, well before the sleep ends and with the per-token tokens."""
+        import dataclasses
+        import time
+
+        from repro_torch.serving.engine import ReplicaPool
+
+        eng = self._engine("qwen2-0.5b", cuda, max_len=32, fused_decode=False)
+        pool = ReplicaPool(eng.cfg, dataclasses.replace(eng.ecfg, fused_decode=True),
+                           n_replicas=2, params=eng.params, device=cuda)
+        r0, r1 = pool.replicas
+        prompts = np.random.default_rng(4).integers(0, eng.cfg.vocab_size,
+                                                    (2, 16)).astype(np.int32)
+        want, _ = eng.generate(prompts)  # loads every kernel first
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(100_000_000)
+        end.record()
+        end.synchronize()
+        cycles = int(2000.0 * 1e8 / start.elapsed_time(end))  # ~2 s
+        with torch.cuda.stream(r0.stream):
+            torch.cuda._sleep(cycles)
+        t0 = time.monotonic()
+        captured, _ = r1.generate(prompts)
+        replayed, _ = r1.generate(prompts)
+        took = time.monotonic() - t0
+        held = not r0.stream.query()
+        r0.stream.synchronize()
+        assert held, "replica 0's sleep ended before replica 1 returned"
+        assert took < 1.0, f"replica 1 took {took:.3f} s beside a 2 s sleep on replica 0"
+        assert len(r1.graphs) == 2 and r1.graph_replays == 2
+        np.testing.assert_array_equal(captured, want)
+        np.testing.assert_array_equal(replayed, want)
+
+    def test_refused_capture_raises(self, cuda):
+        """A decode step that syncs with the host (refused under capture):
+        the first batch's eager run succeeds, then the loop's capture
+        raises, and so does the next batch: nothing runs the eager loop in
+        its place."""
+        eng = self._engine("qwen2-0.5b", cuda)
+        step = eng.model.decode_step
+
+        def syncing_step(params, tokens, cache, rope=None):
+            int(cache["len"])  # a device-to-host read
+            return step(params, tokens, cache, rope=rope)
+
+        eng.model.decode_step = syncing_step
+        prompts = np.ones((2, 16), np.int32)
+        for _ in range(2):
+            with pytest.raises(RuntimeError):
+                eng.generate(prompts)
+        assert ("fused", 2, 8) not in eng.graphs and eng.graph_replays == 0
 
 
 def _tree_to(tree, device):
