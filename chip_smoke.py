@@ -24,13 +24,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    a yardstick only), that call and the kernel/SDPA ratio. The decode
    timings also record the choice behind the launcher's split plan (time
    by rows a split), the SSD timings that behind its heads a block, and one
-   elementwise launch gives the floor of a timed call.
-4. Models: reduced qwen2, reduced xLSTM and reduced Zamba2 in f32, prefill
-   logits and 8 teacher-forced decode steps on the card (kernels) against
-   the same port on the CPU (plain versions), to 1e-4.
+   elementwise launch gives the floor of a timed call. The attention
+   kernels are also checked and timed at kimi-k2's (D = 112, 64 q / 8 kv
+   heads) and nemotron-4's (D = 192, 96 / 8) heads.
+4. Models: every registered arch reduced (qwen2, xLSTM, Zamba2,
+   llama4-scout, kimi-k2, starcoder2, nemotron-4, yi, internvl2) in f32,
+   prefill logits and 8 teacher-forced decode steps on the card (kernels)
+   against the same port on the CPU (plain versions), to 1e-4.
 5. Serving, one model after the other, each in bf16 with random weights
    from a seed, behind MLProxy (``repro_torch.launch.serve``): full-width
-   qwen2-0.5b, full-width xlstm-1.3b, then full-width zamba2-1.2b. The
+   qwen2-0.5b, xlstm-1.3b, zamba2-1.2b and starcoder2-15b, and
+   llama4-scout-17b-a16e at full width with 8 of its 48 layers. The
    rate and SLO come from the median of five timed (2, 128) batches.
    Each model is served twice: directly, on one always-warm replica
    (``run_proxy_loop``; every request must come back with its tokens),
@@ -70,6 +74,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    circuit breaker), which must conserve every request; then
    ``measure_engine`` on the idle card beside the live run's per-bucket
    latencies. Launch counts as in 5, summed over both replicas.
+7. Wide: yi-34b (8 layers), nemotron-4-340b (2), kimi-k2-1t-a32b (1) and
+   internvl2-76b (4) at full width, one engine each (batch buckets 2 and
+   32, prompt 128, 16 tokens): warmup captures the graphs, one
+   ``generate()`` a bucket with exact launches, its tokens exactly the
+   per-token eager loop's; the peak memory and the two graphs' device
+   time at bucket 32.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -97,10 +107,22 @@ MODEL_TOL = 1e-4
 #: library -> name prefix of its bf16 tensor-core instantiations
 TENSOR_CORE_KERNELS = {"flash_attention": "flash_mma_kernel",
                        "mlstm_attention": "mlstm_mma_kernel", "ssd_scan": "ssd_mma_kernel"}
+#: phase 4: every registered arch, reduced, card against CPU
+MODEL_ARCHS = ("qwen2-0.5b", "xlstm-1.3b", "zamba2-1.2b", "llama4-scout-17b-a16e",
+               "kimi-k2-1t-a32b", "starcoder2-15b", "nemotron-4-340b", "yi-34b",
+               "internvl2-76b")
 #: arrivals of each simulated-platform run (duration = arrivals / rate)
-SIM_ARRIVALS = {"qwen2-0.5b": 300, "xlstm-1.3b": 100, "zamba2-1.2b": 300}
+SIM_ARRIVALS = {"qwen2-0.5b": 300, "xlstm-1.3b": 100, "zamba2-1.2b": 300,
+                "starcoder2-15b": 100, "llama4-scout-17b-a16e": 100}
 #: requests of each direct (one warm replica, no platform) run
-DIRECT_REQUESTS = {"qwen2-0.5b": 60, "xlstm-1.3b": 30, "zamba2-1.2b": 60}
+DIRECT_REQUESTS = {"qwen2-0.5b": 60, "xlstm-1.3b": 30, "zamba2-1.2b": 60,
+                   "starcoder2-15b": 30, "llama4-scout-17b-a16e": 30}
+#: served at full width with fewer layers than published (the rest whole):
+#: llama4-scout's 48 layers are 211 GB in bf16, 8 of them 39.4 GB
+SERVE_DEPTH = {"llama4-scout-17b-a16e": 8}
+#: phase 7: full width at a cut depth, one engine each (bf16 weights: yi
+#: ~10.8 GB, nemotron ~32.7 GB, kimi ~38.8 GB, internvl2 ~11.0 GB)
+WIDE_DEPTH = {"yi-34b": 8, "nemotron-4-340b": 2, "kimi-k2-1t-a32b": 1, "internvl2-76b": 4}
 #: the model also served under the passthrough policy (the paper's baseline)
 PASSTHROUGH_ARCH, PASSTHROUGH_ARRIVALS = "qwen2-0.5b", 100
 #: the live runtime's replicas and wall seconds of arrivals (MLProxy, chaos)
@@ -272,10 +294,16 @@ def phase_kernels(torch):
         (2, 257, 4, 1, 32, torch.float32, True),
         (32, 128, 32, 32, 64, torch.bfloat16, True),  # Zamba2's shared block (G = 1)
     ]
+    # kimi-k2's (D = 112, G = 8) and nemotron-4's (D = 192, G = 12) heads at
+    # bucket 32 and prompt 128, and in f32
+    for hq, d in ((64, 112), (96, 192)):
+        flash_cases += [(32, 128, hq, 8, d, torch.bfloat16, True),
+                        (2, 128, hq, 8, d, torch.float32, True),
+                        (2, 77, hq, 8, d, torch.float32, False)]
     # the tensor-core (bf16) kernel's edges: one-row and ragged tiles, every
     # head dim, G = 1, 2 and 7, causal and full
     flash_cases += [(2, s, hq, hkv, d, torch.bfloat16, causal)
-                    for s in (1, 24, 200, 257) for d in (16, 32, 128)
+                    for s in (1, 24, 200, 257) for d in (16, 32, 112, 128, 192)
                     for hq, hkv in ((4, 4), (4, 2), (14, 2)) for causal in (True, False)]
     max_err = 0.0
     for b, s, hq, hkv, d, dtype, causal in flash_cases:
@@ -332,6 +360,17 @@ def phase_kernels(torch):
                 edge = sl or s_max
                 decode_cases += [(b, s_max, hq, hkv, 64, torch.bfloat16, n, sl)
                                  for n in (0, 1, edge - 1, edge + 1, s_max, "spread")]
+    # kimi-k2's and nemotron-4's heads (D = 112 and 192: a row's 16-byte chunks
+    # are not a power of two) at buckets 1 and 32, lengths 0, 1, ragged and
+    # full, the planned split and a forced one; and in f32 (f32 D = 192: two
+    # chunks a lane)
+    for hq, d in ((64, 112), (96, 192)):
+        decode_cases += [(b, s_max, hq, 8, d, torch.bfloat16, n, None)
+                         for b in (1, 32) for n in (0, 1, 129, 144, "spread")]
+        decode_cases += [(1, s_max, hq, 8, d, torch.bfloat16, n, 48)
+                         for n in (0, 1, 47, 49, "spread")]
+        decode_cases += [(32, s_max, hq, 8, d, torch.float32, n, None) for n in (129, "per-row")]
+        decode_cases += [(4, s_max, hq, 8, d, torch.float32, n, 48) for n in (1, 97, "spread")]
     max_err = 0.0
     for b, sm, hq, hkv, d, dtype, length, sl in decode_cases:
         q = randn((b, 1, hq, d), dtype)
@@ -440,6 +479,38 @@ def phase_kernels(torch):
         f"kernel {ms:.5f} ms, splits {_dec.split_plan(1, 2, 4096)}; ms by rows a split "
         + ", ".join(f"{sl}: {device_ms(torch, lambda: _dec.decode_attention_fwd(q, kc, vc, lens, split_len=sl)):.5f}"
                     for sl in (512, 1024, 2048, 4096)))
+    # the attention kernels at kimi-k2's (D = 112) and nemotron-4's (D = 192)
+    # heads, bucket 32, prompt 128 / S_max 144, timed for the record
+    for model, hq, hkv, d in (("kimi-k2", 64, 8, 112), ("nemotron-4", 96, 8, 192)):
+        b, s, g = 32, 128, hq // hkv
+        q, k, v = (randn((b, s, h, d), torch.bfloat16) for h in (hq, hkv, hkv))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ke, ve = kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1)
+        ms = device_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True))
+        plain_ms = device_ms(torch, lambda: ref.flash_attention(q, k, v, causal=True))
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(qt, ke, ve,
+                                                                         is_causal=True))
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bound_ms, bound_by = bound(nbytes, 4 * b * hq * d * s * (s + 1) / 2, "bfloat16")
+        log(f"[kernels] flash_attention timed at {model}'s heads (B={b} S={s} Hq={hq} "
+            f"Hkv={hkv} D={d} bf16 causal): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa "
+            f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB); "
+            f"kernel/sdpa {ms / lib_ms:.3f}")
+        q = randn((b, 1, hq, d), torch.bfloat16)
+        kc, vc = (randn((b, s_max, hkv, d), torch.bfloat16) for _ in range(2))
+        lens = torch.full((1,), s_max, dtype=torch.int32, device="cuda")
+        qt = q.transpose(1, 2)
+        ke, ve = (c.transpose(1, 2).repeat_interleave(g, dim=1) for c in (kc, vc))
+        ms = device_ms(torch, lambda: ops.decode_attention(q, kc, vc, lens))
+        plain_ms = device_ms(torch, lambda: ref.decode_attention(q, kc, vc, lens))
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(qt, ke, ve))
+        nbytes = 2 * (2 * q.numel() + 2 * kc.numel()) + 4
+        bound_ms, bound_by = bound(nbytes, 4 * b * hq * d * s_max, "bfloat16")
+        log(f"[kernels] decode_attention timed at {model}'s heads (B={b} S_max={s_max} "
+            f"len={s_max} Hq={hq} Hkv={hkv} D={d} bf16): kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.2f} MB); kernel/sdpa {ms / lib_ms:.3f}; splits "
+            f"{_dec.split_plan(b, hkv, s_max)}")
     one = torch.zeros(1, device="cuda")
     log(f"[kernels] launch floor: one elementwise kernel on 1 element "
         f"{device_ms(torch, lambda: one.add_(1)):.5f} ms")
@@ -606,8 +677,8 @@ def phase_kernels(torch):
 
 def expected_launches(cfg, prefills: int, steps: int) -> dict:
     """Each kernel's launches for ``prefills`` prefills and ``steps``
-    decode steps of ``cfg``'s model: attention once per layer for the dense
-    family; for xLSTM the mLSTM kernel once per mLSTM block and prefill
+    decode steps of ``cfg``'s model: attention once per layer for the dense,
+    MoE and VLM families; for xLSTM the mLSTM kernel once per mLSTM block and prefill
     (decode runs the plain recurrent cells); for the hybrid the SSD scan
     once per Mamba layer and prefill (decode runs the plain step) and
     attention once per application of the shared block."""
@@ -615,7 +686,7 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     from repro_torch.models import hybrid
 
     want = {name: 0 for name in ops.WRAPPERS}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):  # the decoder transformer
         want["flash_attention"] = cfg.num_layers * prefills
         want["decode_attention"] = cfg.num_layers * steps
     elif cfg.family == "ssm":
@@ -711,6 +782,17 @@ def add_counts(total: dict, counts: dict) -> None:
         total[name] = total.get(name, 0) + n
 
 
+def serving_config(arch: str):
+    """``arch``'s published config, at :data:`SERVE_DEPTH`'s layers where it
+    is cut (full width always)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=SERVE_DEPTH[arch])
+    return cfg
+
+
 def phase_serve(torch, arch: str) -> dict:
     """Serve full-width ``arch`` behind MLProxy, first directly on one
     replica (``run_proxy_loop``), then on the simulated serverless platform
@@ -719,12 +801,11 @@ def phase_serve(torch, arch: str) -> dict:
     the kernel launch counts of the serving runs alone, summed."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.core.config import OptimizerConfig
     from repro_torch.launch import serve
     from repro_torch.serving.engine import InferenceEngine, ReplicaPool
 
-    cfg = get_config(arch)
+    cfg = serving_config(arch)
     # batch buckets 1..32, prompt buckets 32/128, max_len 144, 16 tokens
     ecfg = serve.engine_config(full_size=True, gen_len=16)
     torch.cuda.reset_peak_memory_stats()
@@ -732,7 +813,7 @@ def phase_serve(torch, arch: str) -> dict:
     pool = ReplicaPool(cfg, ecfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(pool.replicas[0].params))
-    log(f"[serve] {cfg.name}: {n_params / 1e6:.1f} M params in "
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, {n_params / 1e6:.1f} M params in "
         f"{cfg.param_dtype}, initialised on the card in {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     warm = pool.warmup()
@@ -1440,6 +1521,65 @@ def phase_live(torch) -> dict:
     return launches
 
 
+# --------------------------------------------------------- wide archs
+def phase_wide(torch) -> dict:
+    """The widest archs at full width and a cut depth (:data:`WIDE_DEPTH`),
+    one engine at a time: batch buckets 2 and 32, prompt bucket 128, 16
+    tokens. Warmup captures each key's two CUDA graphs; then one
+    ``generate()`` a bucket, with the launch counts set to 0 just before and
+    read just after (exact, both graphs replayed), its tokens exactly the
+    per-token eager loop's, and the prefill and decode-loop graphs timed
+    apart at bucket 32. Prints the peak memory; frees the weights before
+    the next model. Returns the kernel launch counts of the ``generate()``
+    calls, summed."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    ecfg = EngineConfig(batch_buckets=(2, 32), prompt_buckets=(128,), max_len=144, gen_len=16)
+    launches: dict = {}
+    for arch, depth in WIDE_DEPTH.items():
+        t0 = time.monotonic()
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+        torch.cuda.reset_peak_memory_stats()
+        engine = InferenceEngine(cfg, ecfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(engine.params))
+        init_s = time.monotonic() - t0
+        warm = engine.warmup()
+        log(f"[wide] {cfg.name}: {depth} of {get_config(arch).num_layers} layers at full width "
+            f"(d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}), "
+            f"{n_params / 1e9:.3f} G params in {cfg.param_dtype} "
+            f"({2 * n_params / 1e9:.1f} GB), initialised in {init_s:.1f} s; warmup second-run ms: "
+            + ", ".join(f"{k}: {1e3 * v:.1f}" for k, v in sorted(warm.items())))
+        ref_engine = InferenceEngine(cfg, dataclasses.replace(ecfg, fused_decode=False),
+                                     params=engine.params, device="cuda")
+        rng = np.random.default_rng(8)
+        for bucket in ecfg.batch_buckets:
+            prompts = rng.integers(0, cfg.vocab_size, (bucket, 128)).astype(np.int32)
+            (got, timing), counts, wall, prefills, steps = counted_run(
+                torch, [engine], lambda: engine.generate(prompts))
+            add_counts(launches, counts)
+            want, _ = ref_engine.generate(prompts)
+            if not np.array_equal(got, want):
+                explain_token_difference(torch, engine, prompts, got, want)
+                raise AssertionError(f"{cfg.name} bucket {bucket}: graph replay and per-token "
+                                     "eager decode disagree")
+            log(f"[wide] {cfg.name} bucket {bucket}: generate() {1e3 * timing['latency_s']:.2f} "
+                f"ms on the graphs, {prefills} prefill, {steps} decode steps, kernel launches "
+                f"{counts}; tokens == per-token eager")
+        split_ms = graph_split_ms(torch, engine)
+        log(f"[wide] {cfg.name}: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+            f"GB; bucket 32 x 128: prefill graph {split_ms[0]:.3f} ms, decode-loop graph "
+            f"{split_ms[1]:.3f} ms ({split_ms[1] / (ecfg.gen_len - 1):.3f} ms a step); "
+            f"{time.monotonic() - t0:.1f} s")
+        del engine, ref_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1467,7 +1607,7 @@ def main() -> int:
 
     phase_build()
     rows = phase_kernels(torch)
-    for arch in SIM_ARRIVALS:
+    for arch in MODEL_ARCHS:
         phase_model(torch, arch)
     launches = {name: 0 for name in rows}
     for arch in SIM_ARRIVALS:  # each run counts only its own model's kernels
@@ -1477,6 +1617,9 @@ def main() -> int:
     t0 = time.monotonic()
     add_counts(launches, phase_live(torch))
     log(f"[live] phase {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    add_counts(launches, phase_wide(torch))
+    log(f"[wide] phase {time.monotonic() - t0:.1f} s")
     missing = [name for name in rows if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on a serving path: {missing}")

@@ -22,11 +22,17 @@ def _leaf_to_torch(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
+#: leaves that keep their own dtype under ``from_jax(..., dtype=)``: the MoE
+#: router stays f32 beside bf16 experts, as both packages initialise it
+KEEP_DTYPE = ("router",)
+
+
 def from_jax(params_np: Dict[str, Any], device=None, dtype=None) -> Dict[str, Any]:
     """Nested dict of numpy arrays → same nested dict of tensors on ``device``
-    (cast to ``dtype`` when given)."""
+    (cast to ``dtype`` when given, but for the :data:`KEEP_DTYPE` leaves)."""
     if isinstance(params_np, dict):
-        return {k: from_jax(v, device, dtype) for k, v in params_np.items()}
+        return {k: from_jax(v, device, None if k in KEEP_DTYPE else dtype)
+                for k, v in params_np.items()}
     return _leaf_to_torch(params_np, device, dtype)
 
 

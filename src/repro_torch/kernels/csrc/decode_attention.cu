@@ -34,7 +34,12 @@
 // units, so exp2f does the softmax) with log2(lanes a row) xor-shuffles.
 // Each group of lanes keeps its own running max, sum and accumulator per
 // head; they merge by shuffles inside a warp and through shared memory
-// across warps.
+// across warps. The shuffles need a power of two of lanes a row: where the
+// row's 16-byte chunks are not one (bf16 D = 112 and 192: 14 and 24; f32
+// D = 112: 28) a row gets the next power of two of lanes and the lanes
+// past its last chunk load nothing and add zeros (bf16 D = 112 leaves 2 of
+// 16 lanes idle, 192 8 of 32); where a row has more chunks than a warp has
+// lanes (f32 D = 192: 48) a lane takes two chunks, 32 apart.
 //
 // Split S (flash-decoding): the launcher sets the split count from
 // (B, Hkv, S_max) alone, never from the length (it lives on the device),
@@ -93,16 +98,24 @@ __device__ __forceinline__ uint4 load16(const void* p) {
 
 // m, l, acc of a partial softmax absorb another one (all may be empty:
 // m = -1e30, l = 0, acc = 0); m in log2 units
-template <int N>
-__device__ __forceinline__ void absorb(float& m, float& l, float (&acc)[N],
-                                       float mo, float lo, const float (&acco)[N]) {
+template <int C, int V>
+__device__ __forceinline__ void absorb(float& m, float& l, float (&acc)[C][V],
+                                       float mo, float lo, const float (&acco)[C][V]) {
   const float mn = fmaxf(m, mo);
   const float a = exp2f(m - mn);
   const float bo = exp2f(mo - mn);
   l = l * a + lo * bo;
 #pragma unroll
-  for (int e = 0; e < N; ++e) acc[e] = acc[e] * a + acco[e] * bo;
+  for (int j = 0; j < C; ++j)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[j][e] = acc[j][e] * a + acco[j][e] * bo;
   m = mn;
+}
+
+__host__ __device__ constexpr int next_pow2(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
 }
 
 template <typename T, int D, int GC>
@@ -117,7 +130,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int64_t o_sb, int64_t o_sh, float scale_log2) {
   constexpr int U = kRowsInFlight;
   constexpr int VEC = 16 / sizeof(T);   // elements of one 16-byte load
-  constexpr int LPR = D / VEC;          // lanes a cache row
+  static_assert(D % VEC == 0, "a row is whole 16-byte chunks");
+  constexpr int DC = D / VEC;           // 16-byte chunks of a row
+  constexpr int CPL = (DC + 31) / 32;   // chunks a lane: 2 for f32 at D = 192
+  // lanes a row, a power of two for the xor-shuffle reductions; where DC is
+  // not (D = 112 and 192) the lanes past the row's last chunk load nothing
+  // and add zeros
+  constexpr int LPR = next_pow2((DC + CPL - 1) / CPL);
   constexpr int RPW = 32 / LPR;         // rows a warp reads at once
   constexpr int NS = kWarps * RPW;      // lane groups ("streams") a block
   __shared__ float sm_acc[kWarps][GC][D];
@@ -132,35 +151,43 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int sub = lane % LPR;           // this lane's 16 bytes of a row
+  const int sub = lane % LPR;           // this lane's chunks of a row: sub + LPR * j
   const int sw = lane / LPR;            // this lane's stream in the warp
   const int g0 = chunk * GC;            // first head of the chunk in the group
+  bool has[CPL];                        // chunk j of this lane lies in the row
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) has[j] = sub + LPR * j < DC;
 
   int len = lengths[b * len_stride];
   len = min(max(len, 0), S_max);
   const int s0 = split * split_len;
   const int s1 = min(s0 + split_len, len);
 
-  float qr[GC][VEC];
+  float qr[GC][CPL][VEC];
 #pragma unroll
   for (int gi = 0; gi < GC; ++gi) {
-    if (g0 + gi < group) {
-      const T* qp = q + b * q_sb + (hkv * group + g0 + gi) * q_sh + sub * VEC;
-      unpack(load16(qp), qr[gi], T());
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) qr[gi][e] *= scale_log2;  // scores in log2 units
-    } else {
+    for (int j = 0; j < CPL; ++j) {
+      if (g0 + gi < group && has[j]) {
+        const T* qp = q + b * q_sb + (hkv * group + g0 + gi) * q_sh + (sub + LPR * j) * VEC;
+        unpack(load16(qp), qr[gi][j], T());
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) qr[gi][e] = 0.f;
+        for (int e = 0; e < VEC; ++e) qr[gi][j][e] *= scale_log2;  // scores in log2 units
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qr[gi][j][e] = 0.f;
+      }
     }
   }
-  float m[GC], l[GC], acc[GC][VEC];
+  float m[GC], l[GC], acc[GC][CPL][VEC];
 #pragma unroll
   for (int gi = 0; gi < GC; ++gi) {
     m[gi] = kNegInf;
     l[gi] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[gi][e] = 0.f;
+    for (int j = 0; j < CPL; ++j)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[gi][j][e] = 0.f;
   }
 
   const T* kb = k + b * k_sb + hkv * k_sh + sub * VEC;
@@ -168,28 +195,34 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // warp-uniform loop (the shuffles need every lane): this pass covers rows
   // base + u·NS + sw, u < U
   for (int base = s0 + warp * RPW; base < s1; base += NS * U) {
-    uint4 kr[U], vr[U];
+    uint4 kr[U][CPL], vr[U][CPL];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int row = base + u * NS + sw;
       ok[u] = row < s1;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (ok[u]) {
-        kr[u] = load16(kb + row * k_ss);
-        vr[u] = load16(vb + row * v_ss);
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        kr[u][j] = vr[u][j] = make_uint4(0u, 0u, 0u, 0u);
+        if (ok[u] && has[j]) {
+          kr[u][j] = load16(kb + row * k_ss + LPR * j * VEC);
+          vr[u][j] = load16(vb + row * v_ss + LPR * j * VEC);
+        }
       }
     }
     float s[U][GC];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[VEC];
-      unpack(kr[u], kf, T());
+      float kf[CPL][VEC];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) unpack(kr[u][j], kf[j], T());
 #pragma unroll
       for (int gi = 0; gi < GC; ++gi) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) dot = fmaf(qr[gi][e], kf[e], dot);
+        for (int j = 0; j < CPL; ++j)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) dot = fmaf(qr[gi][j][e], kf[j][e], dot);
 #pragma unroll
         for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
         s[u][gi] = ok[u] ? dot : kNegInf;
@@ -203,20 +236,25 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = exp2f(m[gi] - mx);
       l[gi] *= alpha;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[gi][e] *= alpha;
+      for (int j = 0; j < CPL; ++j)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[gi][j][e] *= alpha;
       m[gi] = mx;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (!ok[u]) continue;
-      float vf[VEC];
-      unpack(vr[u], vf, T());
+      float vf[CPL][VEC];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) unpack(vr[u][j], vf[j], T());
 #pragma unroll
       for (int gi = 0; gi < GC; ++gi) {
         const float p = exp2f(s[u][gi] - m[gi]);
         l[gi] += p;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[gi][e] = fmaf(p, vf[e], acc[gi][e]);
+        for (int j = 0; j < CPL; ++j)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[gi][j][e] = fmaf(p, vf[j][e], acc[gi][j][e]);
       }
     }
   }
@@ -228,9 +266,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int gi = 0; gi < GC; ++gi) {
       const float mo = __shfl_xor_sync(kFull, m[gi], off);
       const float lo = __shfl_xor_sync(kFull, l[gi], off);
-      float acco[VEC];
+      float acco[CPL][VEC];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acco[e] = __shfl_xor_sync(kFull, acc[gi][e], off);
+      for (int j = 0; j < CPL; ++j)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acco[j][e] = __shfl_xor_sync(kFull, acc[gi][j][e], off);
       absorb(m[gi], l[gi], acc[gi], mo, lo, acco);
     }
   }
@@ -238,7 +278,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int gi = 0; gi < GC; ++gi) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) sm_acc[warp][gi][sub * VEC + e] = acc[gi][e];
+      for (int j = 0; j < CPL; ++j) {
+        if (!has[j]) continue;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          sm_acc[warp][gi][(sub + LPR * j) * VEC + e] = acc[gi][j][e];
+      }
       if (sub == 0) {
         sm_m[warp][gi] = m[gi];
         sm_l[warp][gi] = l[gi];
@@ -349,7 +394,9 @@ int dispatch_d(int D, const Args& a) {
     case 16: return dispatch_group<T, 16>(a);
     case 32: return dispatch_group<T, 32>(a);
     case 64: return dispatch_group<T, 64>(a);
+    case 112: return dispatch_group<T, 112>(a);
     case 128: return dispatch_group<T, 128>(a);
+    case 192: return dispatch_group<T, 192>(a);
     default: return -2;
   }
 }

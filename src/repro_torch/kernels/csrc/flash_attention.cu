@@ -40,6 +40,14 @@
 // sum, stages the warp's 16 rows in its own part of the q tile and stores
 // them with 16-byte stores.
 //
+// Head dims 16, 32, 64, 112, 128 and 192 (the TPU kernel takes any, with
+// full-dim blocks; the port's models use 16 in the reduced configs, 64,
+// 112 for kimi-k2, 128, and 192 for nemotron-4-340b). At D = 112 and 192
+// the bf16 tile takes 75 and 125 KB of shared memory, above the 48 KB a
+// launch gets without opting in; at D = 192 the Q fragments are read from
+// the q tile for each kv tile instead of being held in registers, beside
+// O's 96 f32 registers a thread.
+//
 // Where the bf16 numerics differ from the TPU kernel: the TPU kernel keeps
 // p in f32 for P·V (flash_attention.py:64-67); this kernel rounds p to bf16
 // before the tensor-core product (the row sum l is taken from the f32 p).
@@ -278,7 +286,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int wrow0 = q0 + warp * 16;        // this warp's first query row
   const int row_lo = wrow0 + lane / 4;     // fragment rows: c0,c1 and c2,c3 (+8)
-  uint32_t qf[KSTEPS][4];
+  // up to D = 128 the warp's Q fragments stay in registers; above, they
+  // are read from the q tile again for each kv tile (O alone takes D / 2
+  // f32 registers a thread: 96 at D = 192)
+  constexpr bool kQInRegs = D <= 128;
+  uint32_t qf[kQInRegs ? KSTEPS : 1][4];
   float acc[DT][4];
 #pragma unroll
   for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
@@ -296,10 +308,12 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
+    if constexpr (kQInRegs) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+      }
     }
     const int k0 = t * BK;
     if (!causal || k0 <= wrow0 + 15) {  // warp-uniform: the tile is not wholly above this warp
@@ -310,13 +324,16 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
+        const uint32_t* qa = qf[kQInRegs ? kk : 0];
+        if constexpr (!kQInRegs)
+          ldmatrix_x4(qf[0], qs + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
 #pragma unroll
         for (int nn = 0; nn < NT; nn += 2) {
           uint32_t bfr[4];  // B fragments of n-tiles nn, nn + 1
           ldmatrix_x4(bfr, kt + (nn * 8 + lane % 8 + (lane / 16) * 8) * LD
                                + kk * 16 + ((lane / 8) % 2) * 8);
-          mma_bf16(s[nn], qf[kk], bfr[0], bfr[1]);
-          mma_bf16(s[nn + 1], qf[kk], bfr[2], bfr[3]);
+          mma_bf16(s[nn], qa, bfr[0], bfr[1]);
+          mma_bf16(s[nn + 1], qa, bfr[2], bfr[3]);
         }
       }
       // scale into log2 units; mask keys past S and, causal, above the diagonal
@@ -418,8 +435,9 @@ struct Args {
 
 template <int D>
 int launch_f32(const Args& a) {
-  // 32 KB of f32 kv tile in shared memory at every head dim
-  constexpr int BK = D <= 64 ? 64 : 32;
+  // the f32 kv tile in static shared memory: at most 32 KB (D = 64, 128),
+  // 28 KB at D = 112, 24 KB at D = 192 (16 rows: 32 would fill all 48 KB)
+  constexpr int BK = D <= 64 ? 64 : (D <= 128 ? 32 : 16);
   dim3 grid((a.S + kBlockQ - 1) / kBlockQ, a.B * a.Hq);
   flash_fwd_kernel<float, D, BK><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
@@ -479,7 +497,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       case 16: rc = launch_f32<16>(a); break;
       case 32: rc = launch_f32<32>(a); break;
       case 64: rc = launch_f32<64>(a); break;
+      case 112: rc = launch_f32<112>(a); break;
       case 128: rc = launch_f32<128>(a); break;
+      case 192: rc = launch_f32<192>(a); break;
       default: return -2;
     }
   } else if (dtype == 1) {
@@ -487,7 +507,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       case 16: rc = launch_bf16<16>(a, device); break;
       case 32: rc = launch_bf16<32>(a, device); break;
       case 64: rc = launch_bf16<64>(a, device); break;
+      case 112: rc = launch_bf16<112>(a, device); break;
       case 128: rc = launch_bf16<128>(a, device); break;
+      case 192: rc = launch_bf16<192>(a, device); break;
       default: return -2;
     }
   } else {

@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "decode_attention"
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128, 192)
 MAX_GROUP = 32  # q heads a kv head; a block takes 2 of them at a time
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the most blocks (batch, kv head and split) the split aims for: one a

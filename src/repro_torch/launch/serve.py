@@ -20,6 +20,9 @@ sim↔live parity runs).
     PYTHONPATH=src python -m repro_torch.launch.serve               # full qwen2-0.5b on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b   # full xLSTM-1.3B
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b  # full Zamba2-1.2B
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b  # full StarCoder2-15B
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --arch llama4-scout-17b-a16e --duration 10  # any registered arch: MoE, VLM, dense
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --duration 20 [--snapshot proxy_state.json]
 """

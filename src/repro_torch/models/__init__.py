@@ -1,1 +1,1 @@
-"""Model library (dense transformer) in PyTorch."""
+"""Model library in PyTorch: the decoder transformer (dense, MoE, VLM), xLSTM and Zamba2."""

@@ -19,21 +19,44 @@ Params = Dict[str, Any]
 
 
 # ----------------------------------------------------------------- init utils
+#: f32 elements drawn at a time (512 MB): a large weight is drawn in row
+#: blocks of at most this many elements, each cast into the result, so its
+#: f32 draw never needs the whole tensor at once (kimi-k2's stacked expert
+#: ``wi`` is 11.3 G elements a layer, a 45 GB f32 transient)
+DRAW_ELEMENTS = 1 << 27
+
+
+def normal_init(gen: torch.Generator, shape: Sequence[int], scale: float,
+                dtype) -> torch.Tensor:
+    """N(0, scale²) of ``shape`` in ``dtype`` on the generator's device.
+
+    Allocated in ``dtype`` first, then filled a block of rows (over every
+    axis but the last) at a time: each block is drawn in f32 and cast, as
+    the JAX package draws f32 and casts. A tensor of at most
+    :data:`DRAW_ELEMENTS` elements is one draw.
+    """
+    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    rows = out.view(-1, out.shape[-1])
+    step = max(1, DRAW_ELEMENTS // rows.shape[1])
+    for r0 in range(0, rows.shape[0], step):
+        r1 = min(r0 + step, rows.shape[0])
+        draw = torch.randn((r1 - r0, rows.shape[1]), generator=gen, device=gen.device)
+        rows[r0:r1] = draw.mul_(scale)
+    return out
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
                scale: Optional[float] = None, lead: Sequence[int] = ()) -> torch.Tensor:
     """N(0, 1/in_dim) weights of shape ``(*lead, in_dim, out_dim)``.
 
-    ``lead`` is the stacked layer axis; the draw is f32 on the generator's
-    device, then cast, as the JAX package draws f32 and casts.
+    ``lead`` is the stacked layer axis (and, for experts, the expert axis).
     """
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    w = torch.randn((*lead, in_dim, out_dim), generator=gen, device=gen.device)
-    return (w * scale).to(dtype)
+    return normal_init(gen, (*lead, in_dim, out_dim), scale, dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype) -> torch.Tensor:
-    w = torch.randn((vocab, dim), generator=gen, device=gen.device)
-    return (w * 0.02).to(dtype)
+    return normal_init(gen, (vocab, dim), 0.02, dtype)
 
 
 # ----------------------------------------------------------------------- norms
@@ -76,10 +99,26 @@ def make_norm(kind: str):
 GATED_ACTIVATIONS = ("silu",)  # gated (GLU) families use fused wi = [gate|up]
 
 
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    """Squared ReLU (Primer / Nemotron-4)."""
+    return torch.square(F.relu(x))
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def activation_fn(name: str):
     if name == "silu":
         return F.silu
-    raise NotImplementedError(f"activation {name!r} is not ported yet")
+    if name == "gelu":
+        return _gelu_tanh
+    if name == "relu":
+        return F.relu
+    if name == "relu2":
+        return _relu2
+    raise ValueError(f"unknown activation {name!r}")
 
 
 # ------------------------------------------------------------------------ FFN

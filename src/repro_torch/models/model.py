@@ -5,8 +5,8 @@
     logits, cache = model.prefill(params, tokens, cache)
     logits, cache = model.decode_step(params, tokens, cache)
 
-The dense, ssm (xLSTM) and hybrid (Zamba2) families are ported; the others
-raise.
+The dense, moe and vlm families (the decoder transformer), ssm (xLSTM) and
+hybrid (Zamba2) are ported; encdec raises.
 """
 from __future__ import annotations
 
@@ -21,11 +21,13 @@ Params = Dict[str, Any]
 
 _FAMILY_MODULES = {
     "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
     "ssm": xlstm_model,
     "hybrid": hybrid,
 }
 #: Families whose attention takes RoPE tables (an engine builds them once).
-_ROPE_FAMILIES = ("dense", "hybrid")
+_ROPE_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 #: Families whose cache is recurrent state that prefill reads: a reused
 #: cache must first be put back to ``init_cache``'s values. (The hybrid
 #: family's prefill reads none of its state, so its cache is reused as is.)

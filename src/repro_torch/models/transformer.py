@@ -1,10 +1,12 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM: the dense, MoE and VLM-backbone families.
 
 The JAX package's ``lax.scan`` over the stacked layer axis becomes a loop
 over per-layer views of the same stacked tensors; the ``shard_activation``
 calls, which do nothing without a mesh, are dropped. Attention goes
 through ``kernels/ops.py``: the hand-written kernels on a CUDA device,
-their plain versions on the CPU.
+their plain versions on the CPU. A MoE layer's FFN is ``models/moe.py``
+(plus the shared expert's MLP when ``moe_shared_ffn`` is set); the VLM
+family is the same decoder, fed token ids or float embeddings.
 
 Three entry points:
   * ``forward``       — logits over a full (B, S) sequence.
@@ -26,14 +28,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     dense_init,
     embed_init,
     init_mlp,
-    init_rmsnorm,
     apply_rope,
+    make_norm,
     mlp,
-    rmsnorm,
     rope_frequencies,
     unembed,
 )
@@ -42,30 +44,40 @@ Params = Dict[str, Any]
 Rope = Tuple[torch.Tensor, torch.Tensor]
 
 
+FAMILIES = ("dense", "moe", "vlm")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported to PyTorch yet")
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported to PyTorch yet")
+    make_norm(cfg.norm)  # raises on an unknown norm
 
 
 # ------------------------------------------------------------------- params
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    """Random params on ``gen``'s device, stacked on a leading layer axis."""
+    """Random params on ``gen``'s device, stacked on a leading layer axis;
+    a MoE layer's router stays f32, as the JAX package keeps it."""
     _check_supported(cfg)
+    init_norm, _ = make_norm(cfg.norm)
     dev, lead = gen.device, (cfg.num_layers,)
+    layers: Params = {
+        "attn_norm": init_norm(cfg.d_model, cfg.dtype, dev, lead),
+        "attn": attn_lib.init_attention(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+            cfg.dtype, qkv_bias=cfg.qkv_bias, lead=lead),
+        "mlp_norm": init_norm(cfg.d_model, cfg.dtype, dev, lead),
+    }
+    if cfg.family == "moe":
+        layers["moe"] = moe_lib.init_moe(
+            gen, cfg.d_model, cfg.num_experts, cfg.expert_d_ff, cfg.activation,
+            cfg.dtype, lead=lead)
+    if cfg.family != "moe" or cfg.moe_shared_ffn:
+        layers["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                                 cfg.dtype, bias=cfg.mlp_bias, lead=lead)
     params: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.dtype),
-        "layers": {
-            "attn_norm": init_rmsnorm(cfg.d_model, cfg.dtype, dev, lead),
-            "attn": attn_lib.init_attention(
-                gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
-                cfg.dtype, qkv_bias=cfg.qkv_bias, lead=lead),
-            "mlp_norm": init_rmsnorm(cfg.d_model, cfg.dtype, dev, lead),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                            cfg.dtype, bias=cfg.mlp_bias, lead=lead),
-        },
-        "final_norm": init_rmsnorm(cfg.d_model, cfg.dtype, dev),
+        "layers": layers,
+        "final_norm": init_norm(cfg.d_model, cfg.dtype, dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, cfg.dtype,
@@ -82,8 +94,10 @@ def layer_views(layers: Params, num_layers: int) -> List[Params]:
 
 
 # ------------------------------------------------------------------ forward
-def _embed_tokens(cfg: ModelConfig, params: Params, tokens) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.cdtype)
+def _embed_tokens(cfg: ModelConfig, params: Params, tokens_or_embeds) -> torch.Tensor:
+    if tokens_or_embeds.is_floating_point():  # modality-frontend embeddings
+        return tokens_or_embeds.to(cfg.dtype).to(cfg.cdtype)
+    return params["embed"][tokens_or_embeds].to(cfg.cdtype)
 
 
 def _unembed(params: Params, x) -> torch.Tensor:
@@ -95,24 +109,48 @@ def _qkv_rope(cfg: ModelConfig, p: Params, x, cos, sin, positions):
     return apply_rope(q, cos, sin, positions), apply_rope(k, cos, sin, positions), v
 
 
-def _finish_layer(cfg: ModelConfig, p: Params, x, attn_out):
+def _ffn_block(cfg: ModelConfig, p: Params, x, return_aux: bool):
+    """Dense or MoE FFN; returns (out, MoE aux loss, or None for a dense
+    FFN or without ``return_aux``)."""
+    if cfg.family == "moe":
+        routed, aux = moe_lib.moe_ffn(
+            p["moe"], x, top_k=cfg.num_experts_per_tok,
+            capacity_factor=cfg.capacity_factor, activation=cfg.activation,
+            return_aux=return_aux)
+        if cfg.moe_shared_ffn:
+            routed = routed + mlp(p["mlp"], x, cfg.activation)
+        return routed, aux
+    return mlp(p["mlp"], x, cfg.activation), None
+
+
+def _finish_layer(cfg: ModelConfig, p: Params, x, attn_out, norm, return_aux: bool = False):
+    """Residual attention output, then the FFN block → (x, aux)."""
     b, s = x.shape[:2]
     x = x + attn_out.reshape(b, s, cfg.num_heads * cfg.hd) @ p["attn"]["wo"]
-    return x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x), cfg.activation)
+    h, aux = _ffn_block(cfg, p, norm(p["mlp_norm"], x), return_aux)
+    return x + h, aux
 
 
-def forward(cfg: ModelConfig, params: Params, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward → (logits (B, S, V) f32, aux loss 0)."""
+def forward(cfg: ModelConfig, params: Params, tokens_or_embeds,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward → (logits (B, S, V) f32, MoE aux loss summed
+    over the layers; 0 for dense). Takes token ids or (B, S, D) float
+    embeddings."""
     _check_supported(cfg)
-    x = _embed_tokens(cfg, params, tokens)
+    _, norm = make_norm(cfg.norm)
+    x = _embed_tokens(cfg, params, tokens_or_embeds)
     b, s = x.shape[:2]
     cos, sin = rope_frequencies(cfg.hd, s, cfg.rope_theta, device=x.device)
     positions = torch.arange(s, device=x.device).expand(b, s)
+    aux = torch.zeros((), device=x.device)
     for p in layer_views(params["layers"], cfg.num_layers):
-        q, k, v = _qkv_rope(cfg, p, rmsnorm(p["attn_norm"], x), cos, sin, positions)
-        x = _finish_layer(cfg, p, x, kernel_ops.flash_attention(q, k, v, causal=True))
-    x = rmsnorm(params["final_norm"], x)
-    return _unembed(params, x), torch.zeros((), device=x.device)
+        q, k, v = _qkv_rope(cfg, p, norm(p["attn_norm"], x), cos, sin, positions)
+        x, layer_aux = _finish_layer(cfg, p, x, kernel_ops.flash_attention(q, k, v, causal=True),
+                                     norm, return_aux=True)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    x = norm(params["final_norm"], x)
+    return _unembed(params, x), aux
 
 
 # ------------------------------------------------------------------ serving
@@ -136,6 +174,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens, cache: Dict[str, torch.Ten
     """Run the prompt; write K/V for all layers into ``cache`` in place;
     return (last-position logits (B, 1, V) f32, cache)."""
     _check_supported(cfg)
+    _, norm = make_norm(cfg.norm)
     x = _embed_tokens(cfg, params, tokens)
     b, s = x.shape[:2]
     cos, sin = _rope_for(cfg, cache, rope)
@@ -143,13 +182,13 @@ def prefill(cfg: ModelConfig, params: Params, tokens, cache: Dict[str, torch.Ten
     k_layers = torch.unbind(cache["k"], 0)
     v_layers = torch.unbind(cache["v"], 0)
     for p, kc, vc in zip(layer_views(params["layers"], cfg.num_layers), k_layers, v_layers):
-        q, k, v = _qkv_rope(cfg, p, rmsnorm(p["attn_norm"], x), cos, sin, positions)
+        q, k, v = _qkv_rope(cfg, p, norm(p["attn_norm"], x), cos, sin, positions)
         out = kernel_ops.flash_attention(q, k, v, causal=True)
         kc[:, :s].copy_(k)
         vc[:, :s].copy_(v)
-        x = _finish_layer(cfg, p, x, out)
+        x, _ = _finish_layer(cfg, p, x, out, norm)
     cache["len"].fill_(s)
-    x_last = rmsnorm(params["final_norm"], x[:, -1:])
+    x_last = norm(params["final_norm"], x[:, -1:])
     return _unembed(params, x_last), cache
 
 
@@ -165,6 +204,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache: Dict[str, torch
     every row is attended (the kernel clamps the length to S_max).
     """
     _check_supported(cfg)
+    _, norm = make_norm(cfg.norm)
     x = _embed_tokens(cfg, params, tokens)
     b = x.shape[0]
     cos, sin = _rope_for(cfg, cache, rope)
@@ -176,10 +216,10 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache: Dict[str, torch
     k_layers = torch.unbind(cache["k"], 0)
     v_layers = torch.unbind(cache["v"], 0)
     for p, kc, vc in zip(layer_views(params["layers"], cfg.num_layers), k_layers, v_layers):
-        q, k, v = _qkv_rope(cfg, p, rmsnorm(p["attn_norm"], x), cos, sin, positions)
+        q, k, v = _qkv_rope(cfg, p, norm(p["attn_norm"], x), cos, sin, positions)
         attn_lib.cache_update_layer(kc, vc, k, v, write_at)
         out = kernel_ops.decode_attention(q, kc, vc, lengths)
-        x = _finish_layer(cfg, p, x, out)
+        x, _ = _finish_layer(cfg, p, x, out, norm)
     cache["len"].add_(1)
-    x = rmsnorm(params["final_norm"], x)
+    x = norm(params["final_norm"], x)
     return _unembed(params, x), cache

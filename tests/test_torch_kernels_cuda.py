@@ -124,6 +124,35 @@ class TestKernelsOnCard:
             if int(lens.min()) > 0:
                 _close(got, tref.decode_attention(q, kc, vc, lens), "bfloat16")
 
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("hq,hkv,d", [(64, 8, 112), (96, 8, 192)])  # kimi-k2, nemotron-4
+    def test_attention_kernels_at_head_dims_112_and_192(self, cuda, hq, hkv, d, dtype):
+        """Flash at prompt 128 and S = 1 and 77, causal and full; decode at
+        S_max 144 with lengths 0, 1, ragged per row and full, the planned
+        split and a forced one (a length of 0 held to the split rendering,
+        which gives zeros as the TPU kernel does)."""
+        for b, s, causal in ((2, 128, True), (2, 1, True), (2, 77, False)):
+            q, k, v = (t.to(cuda) for t in _inputs(
+                s + d, [(b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)], dtype))
+            tops.reset_launches()
+            got = tops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert tops.launches()["flash_attention"] == 1
+            _close(got, tref.flash_attention(q, k, v, causal=causal), dtype)
+        b, s_max = 4, 144
+        q, kc, vc = (t.to(cuda) for t in _inputs(
+            d, [(b, 1, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d)], dtype))
+        per_row = torch.tensor([0, 1, 77, 144], dtype=torch.int32, device=cuda)
+        for lens in [torch.tensor([n], dtype=torch.int32, device=cuda) for n in (0, 1, 97, 144)
+                     ] + [per_row]:
+            for sl in (None, 48):
+                split_len = sl or tdec.split_plan(b, hkv, s_max)[1]
+                got = tdec.decode_attention_fwd(q, kc, vc, lens, split_len=sl)
+                torch.cuda.synchronize()
+                _close(got, tref.decode_attention_split(q, kc, vc, lens, split_len), dtype)
+                if int(lens.min()) > 0:
+                    _close(got, tref.decode_attention(q, kc, vc, lens), dtype)
+
     def test_decode_kernel_ignores_padding_content_bf16_split(self, cuda):
         q, kc, vc = (t.to(cuda) for t in _inputs(
             1, [(2, 1, 14, 64), (2, 144, 2, 64), (2, 144, 2, 64)], "bfloat16"))
@@ -365,6 +394,42 @@ class TestEngineOnCard:
         assert tops.launches()["flash_attention"] == eng.cfg.num_layers * 8
         assert tops.launches()["decode_attention"] == eng.cfg.num_layers * steps
 
+
+    @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b"])
+    def test_reduced_moe_card_matches_cpu(self, cuda, arch):
+        """Reduced MoE models in f32: prefill and 8 teacher-forced decode
+        steps on the card (kernels) give the CPU's logits to 1e-4, with the
+        attention kernels launched once a layer a prefill or step; the
+        engine's graphs give the per-token eager loop's tokens."""
+        from repro_torch.configs import get_config
+        from repro_torch.models.model import Model
+
+        cfg = get_config(arch).reduced()
+        model = Model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)))
+        forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 2, 1)))
+        outs = {}
+        for dev in ("cpu", cuda):
+            tops.reset_launches()
+            p = _tree_to(params, dev)
+            cache = model.init_cache(2, 32, device=dev)
+            logits, cache = model.prefill(p, prompt.to(dev), cache)
+            seq = [logits]
+            for i in range(8):
+                logits, cache = model.decode_step(p, forced[i].to(dev), cache)
+                seq.append(logits)
+            outs[str(dev)] = torch.cat(seq, dim=1).cpu()
+        assert tops.launches()["flash_attention"] == cfg.num_layers
+        assert tops.launches()["decode_attention"] == 8 * cfg.num_layers
+        torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=1e-4, rtol=1e-4)
+        eng = self._engine(arch, cuda)
+        ref = self._engine(arch, cuda, params=eng.params, fused_decode=False)
+        for n in (2, 2, 1, 1):
+            prompts = rng.integers(0, cfg.vocab_size, (n, 16)).astype(np.int32)
+            np.testing.assert_array_equal(eng.generate(prompts)[0], ref.generate(prompts)[0])
+        assert eng.graph_replays == 2 * 2
 
     @pytest.mark.parametrize("arch", ["qwen2-0.5b", "xlstm-1.3b", "zamba2-1.2b"])
     def test_graph_replay_matches_per_token_eager(self, cuda, arch):
