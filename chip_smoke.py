@@ -26,9 +26,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    by rows a split), the SSD timings that behind its heads a block, and one
    elementwise launch gives the floor of a timed call. The attention
    kernels are also checked and timed at kimi-k2's (D = 112, 64 q / 8 kv
-   heads) and nemotron-4's (D = 192, 96 / 8) heads.
+   heads) and nemotron-4's (D = 192, 96 / 8) heads, and at
+   seamless-m4t-large-v2's (16 q and kv heads of 64): flash over Sq != Sk
+   keys (full and top-left causal, one-row and ragged tiles), the encoder
+   (S = 4096, not causal; checked at B = 2, timed at B = 2 and 32), the
+   cross-attention (128 rows over 4096 frames, B = 32), and decode over a
+   4096-row cache at B = 2 and 32. Every flash and decode case is also
+   held to its error over each output row's rms (``SCALED_TOL``: at 4096
+   keys the outputs are ~0.026, below the absolute tolerance), and at
+   4096 keys the plain version that skips keys 64-127 must fail that gate.
 4. Models: every registered arch reduced (qwen2, xLSTM, Zamba2,
-   llama4-scout, kimi-k2, starcoder2, nemotron-4, yi, internvl2) in f32,
+   llama4-scout, kimi-k2, starcoder2, nemotron-4, yi, internvl2 and
+   seamless-m4t, the last from 40 frames) in f32,
    prefill logits and 8 teacher-forced decode steps on the card (kernels)
    against the same port on the CPU (plain versions), to 1e-4.
 5. Serving, one model after the other, each in bf16 with random weights
@@ -80,12 +89,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``generate()`` a bucket with exact launches, its tokens exactly the
    per-token eager loop's; the peak memory and the two graphs' device
    time at bucket 32.
+8. Encoder-decoder: seamless-m4t-large-v2 at full width, nothing cut
+   (1.632 G params, bf16, weights from seed 0), through ``Model.prefill``
+   on (B, 4096, 1024) random frames and 128-token prompts, then 15 greedy
+   ``decode_step`` calls (16 tokens, a 144-row cache), at B = 2 and 32: the
+   launch counts (72 flash a prefill, 48 decode a step), the prefill and
+   the decode step in ms (CUDA events), the peak memory, a profile whose
+   port kernels must equal the counted launches, and the greedy tokens
+   against the same loop with the attention's plain versions on the card
+   (the bf16 logits on the same inputs held to 0.1; the top-2 margins
+   printed where a token differs); the loop again with every attention
+   call held to its plain version on its own inputs (``SCALED_TOL``); at
+   B = 2 the same loop in f32, every step's logits held to the plain
+   versions' (fed the same tokens) to 1e-3.
+9. Fleet controller (``core/fleet_controller.py``): 10,000 endpoints, 8
+   buckets, 64-sample rings (20 MB), 300 ticks of ``record_upstream`` /
+   ``record_e2e`` / ``record_dispatch`` / ``timeout_step`` and an
+   ``aimd_step`` every 10 ticks on the card, twice; every decision
+   (dispatch now, timeout, Max_BS) equal to the same ticks on the CPU,
+   tick for tick; the card's µs a tick.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -104,13 +133,28 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MLSTM_TOL = {k: 2 * v for k, v in TOL.items()}  # the signed denominator amplifies rounding
 SSD_TOL = {k: 4 * v for k, v in TOL.items()}  # long products of decays amplify rounding
 MODEL_TOL = 1e-4
+#: the attention kernels' error against each output row's own scale: the
+#: largest, over rows (query, head), of max |got - want| / rms(want) over
+#: the row's D values. Over thousands of unit-variance keys the outputs
+#: average out to ~sqrt(e / Sk) (0.026 at 4096 keys), where TOL's absolute
+#: part is as large as a typical output and a kernel that skipped a 64-key
+#: tile would pass it. A bf16 rounding of a row's largest values is a few
+#: hundredths of its rms; a skipped tile of 4096 keys moves a row by ~0.12
+#: of it typically (each long case also shows that its skipped-tile plain
+#: version fails this gate)
+SCALED_TOL = {"float32": 1e-3, "bfloat16": 0.1}
+#: key (or cache) rows from which a case also checks the skipped-tile gate
+LONG_KEYS = 1024
 #: library -> name prefix of its bf16 tensor-core instantiations
 TENSOR_CORE_KERNELS = {"flash_attention": "flash_mma_kernel",
                        "mlstm_attention": "mlstm_mma_kernel", "ssd_scan": "ssd_mma_kernel"}
 #: phase 4: every registered arch, reduced, card against CPU
 MODEL_ARCHS = ("qwen2-0.5b", "xlstm-1.3b", "zamba2-1.2b", "llama4-scout-17b-a16e",
                "kimi-k2-1t-a32b", "starcoder2-15b", "nemotron-4-340b", "yi-34b",
-               "internvl2-76b")
+               "internvl2-76b", "seamless-m4t-large-v2")
+#: phase 4: the encoder frames of the reduced encoder-decoder (more than
+#: its attn_q_chunk of 16, fewer than the kernels' 64-row tiles)
+MODEL_FRAMES = 40
 #: arrivals of each simulated-platform run (duration = arrivals / rate)
 SIM_ARRIVALS = {"qwen2-0.5b": 300, "xlstm-1.3b": 100, "zamba2-1.2b": 300,
                 "starcoder2-15b": 100, "llama4-scout-17b-a16e": 100}
@@ -127,6 +171,32 @@ WIDE_DEPTH = {"yi-34b": 8, "nemotron-4-340b": 2, "kimi-k2-1t-a32b": 1, "internvl
 PASSTHROUGH_ARCH, PASSTHROUGH_ARRIVALS = "qwen2-0.5b", 100
 #: the live runtime's replicas and wall seconds of arrivals (MLProxy, chaos)
 LIVE_REPLICAS, LIVE_SECONDS, CHAOS_SECONDS = 2, 20.0, 10.0
+#: phase 8: seamless-m4t-large-v2's batches, encoder frames, prompt, cache
+#: rows and greedy tokens
+ENCDEC_BATCHES, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_MAX_LEN, ENCDEC_TOKENS = (
+    (2, 32), 4096, 128, 144, 16)
+#: f32 logits (prefill and decode steps), kernels against plain versions
+#: fed the same tokens, at full width: both
+#: paths run the same f32 GEMMs (TF32 off); they differ in the attention's
+#: summation order (online softmax over 64-key tiles against one softmax
+#: over the row), ~1e-6 relative an output, carried through 48 layers
+ENCDEC_F32_TOL = 1e-3
+#: bf16 logits, kernels against plain versions on the same inputs (the
+#: prefill's and each step's up to a row's first differing greedy token):
+#: both paths keep a bf16 residual stream, so the attention's rounding
+#: differences pass through 48 layers to logits (up to ~5) that land on
+#: bf16 steps of 1/32, where greedy ties are exact. A plain prefill that
+#: skips one 64-key tile of the encoder's and the cross-attention's 4096
+#: keys moves them little more (random weights: the residual stream hardly
+#: sees attention outputs averaged over 4096 keys), so each attention call
+#: is also held to its plain version on its own inputs
+#: (``checked_attention``), and phase 3 holds the kernels at these shapes
+#: on random inputs, where a skipped tile fails :data:`SCALED_TOL`
+ENCDEC_BF16_TOL = 0.1
+#: phase 9: endpoints, buckets, samples a ring, ticks, AIMD every so many
+#: ticks, upstream and end-to-end observations a tick
+FLEET_N, FLEET_BUCKETS, FLEET_WINDOW, FLEET_TICKS, FLEET_AIMD_EVERY = 10_000, 8, 64, 300, 10
+FLEET_UPSTREAM, FLEET_E2E = 2_000, 1_000
 
 
 def log(msg: str) -> None:
@@ -184,6 +254,46 @@ def check_close(torch, got, want, tol: float, what: str) -> float:
     if bool(bad.any()):
         raise AssertionError(f"{what}: max abs err {max_err:.3e} over tolerance {tol}")
     return max_err
+
+
+def check_scaled(torch, got, want, limit: float, what: str) -> float:
+    """:func:`scaled_err`, which must be at most ``limit``
+    (:data:`SCALED_TOL`)."""
+    err = scaled_err(torch, got, want)
+    if err > limit:
+        raise AssertionError(f"{what}: max abs err {err:.3e} of its row's rms, over {limit}")
+    return err
+
+
+def scaled_err(torch, got, want) -> float:
+    """The largest, over output rows (the last axis), of max |got - want|
+    over the row / rms(want) over the row; a row where ``want`` is all
+    zeros must be zeros (else inf)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs().amax(-1)
+    rms = want.pow(2).mean(-1).sqrt()
+    zero = rms == 0
+    if bool((diff[zero] > 0).any()):
+        return float("inf")
+    return float((diff[~zero] / rms[~zero]).max()) if bool((~zero).any()) else 0.0
+
+
+def skip_tile(torch, x):
+    """``x`` (B, S, H, D) without rows 64-127: the keys or cache rows a
+    kernel that skipped its second 64-row tile would read."""
+    return torch.cat([x[:, :64], x[:, 128:]], 1)
+
+
+def skipped_tile_err(torch, want, dn: str, what: str, plain_skipped) -> float:
+    """The scaled error of ``plain_skipped`` (the plain version over the
+    rows :func:`skip_tile` keeps) against ``want``: it must fail
+    :data:`SCALED_TOL`, or that gate could not tell such a kernel from a
+    right one."""
+    err = scaled_err(torch, plain_skipped, want)
+    if err <= SCALED_TOL[dn]:
+        raise AssertionError(f"{what}: skipping rows 64-127 moves the output by only {err:.3e} "
+                             f"of its rms, within the gate {SCALED_TOL[dn]}")
+    return err
 
 
 def bound(nbytes: int, flops: float, dtype_name: str):
@@ -305,18 +415,42 @@ def phase_kernels(torch):
     flash_cases += [(2, s, hq, hkv, d, torch.bfloat16, causal)
                     for s in (1, 24, 200, 257) for d in (16, 32, 112, 128, 192)
                     for hq, hkv in ((4, 4), (4, 2), (14, 2)) for causal in (True, False)]
+    # Sq query rows over Sk keys, as the TPU kernel takes them: one-row and
+    # ragged tiles either way round, full and causal (top-left aligned), f32
+    # and bf16; an eighth entry is Sk
+    flash_cases += [(2, sq, hq, hkv, d, dtype, causal, sk)
+                    for sq, sk in ((1, 130), (24, 257), (257, 24), (200, 64))
+                    for d in (64, 112, 192) for hq, hkv in ((4, 4), (4, 2))
+                    for dtype in (torch.float32, torch.bfloat16) for causal in (False, True)]
+    # seamless-m4t-large-v2 (16 q and kv heads of 64), not causal: the
+    # encoder at S = 4096 (B = 2: the plain version's f32 scores take 2.1 GB
+    # there, 34 GB at B = 32) and the cross-attention, 128 prompt rows over
+    # 4096 frames at B = 32
+    flash_cases += [(2, 4096, 16, 16, 64, dtype, False) for dtype in (torch.float32, torch.bfloat16)]
+    flash_cases += [(32, 128, 16, 16, 64, dtype, False, 4096)
+                    for dtype in (torch.float32, torch.bfloat16)]
     max_err = 0.0
-    for b, s, hq, hkv, d, dtype, causal in flash_cases:
+    for b, s, hq, hkv, d, dtype, causal, *sk in flash_cases:
+        sk = sk[0] if sk else s
         q = randn((b, s, hq, d), dtype)
-        k = randn((b, s, hkv, d), dtype)
-        v = randn((b, s, hkv, d), dtype)
+        k = randn((b, sk, hkv, d), dtype)
+        v = randn((b, sk, hkv, d), dtype)
         dn = str(dtype).split(".")[-1]
-        err = check_close(torch, ops.flash_attention(q, k, v, causal=causal),
-                          ref.flash_attention(q, k, v, causal=causal), TOL[dn],
-                          f"flash_attention {b}x{s}x{hq}/{hkv}x{d} {dn} causal={causal}")
+        what = f"flash_attention {b}x{s}/{sk}x{hq}/{hkv}x{d} {dn} causal={causal}"
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal=causal)
+        err = check_close(torch, got, want, TOL[dn], what)
+        scaled = check_scaled(torch, got, want, SCALED_TOL[dn], what)
+        skipped = ""
+        if sk >= LONG_KEYS:
+            bad = skipped_tile_err(torch, want, dn, what, ref.flash_attention(
+                q, skip_tile(torch, k), skip_tile(torch, v), causal=causal))
+            skipped = f"; the plain version skipping keys 64-127: {bad:.3e} of the rms"
         max_err = max(max_err, err)
-        log(f"[kernels] flash_attention B={b} S={s} Hq={hq} Hkv={hkv} D={d} {dn} "
-            f"causal={causal}: max abs err {err:.3e}")
+        log(f"[kernels] flash_attention B={b} Sq={s} Sk={sk} Hq={hq} Hkv={hkv} D={d} {dn} "
+            f"causal={causal}: max abs err {err:.3e}, {scaled:.3e} of its row's rms "
+            f"(gate {SCALED_TOL[dn]}){skipped}")
+        del q, k, v, got, want
     # timed at the serving shape: B=32, prompt bucket 128, bf16, causal
     b, s, hq, hkv, d = 32, 128, 14, 2, 64
     q, k, v = (randn((b, s, h, d), torch.bfloat16) for h in (hq, hkv, hkv))
@@ -339,6 +473,28 @@ def phase_kernels(torch):
         f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms, "
         f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
         f"kernel/sdpa {ms / lib_ms:.3f}")
+    # seamless-m4t-large-v2's flash shapes, bf16, not causal, timed for the
+    # record: the encoder at B = 2 and 32, the cross-attention at B = 32. At
+    # the encoder's B = 32 the plain version is not run: its f32 scores and
+    # probabilities would take 69 GB.
+    h, d = 16, 64
+    for what, b, sq, sk in (("encoder", 2, 4096, 4096), ("encoder", 32, 4096, 4096),
+                            ("cross-attention", 32, 128, 4096)):
+        q, k, v = (randn((b, n, h, d), torch.bfloat16) for n in (sq, sk, sk))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = device_ms(torch, lambda: ops.flash_attention(q, k, v, causal=False), samples=10)
+        plain = ("not run (69 GB of f32 scores)" if what == "encoder" and b == 32 else
+                 f"{device_ms(torch, lambda: ref.flash_attention(q, k, v, causal=False), samples=5):.5f} ms")
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), samples=10)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * b * h * d * sq * sk
+        bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+        log(f"[kernels] flash_attention timed at seamless-m4t's {what} (B={b} Sq={sq} Sk={sk} "
+            f"Hq=Hkv={h} D={d} bf16 full): kernel {ms:.5f} ms, plain {plain}, sdpa "
+            f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e12:.3f} TFLOP); kernel/sdpa {ms / lib_ms:.3f}; "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        del q, k, v, qt, kt, vt
 
     # ---- decode: (B, S_max, Hq, Hkv, D, dtype, lengths, rows a split or None
     # for the launcher's plan)
@@ -371,6 +527,14 @@ def phase_kernels(torch):
                          for n in (0, 1, 47, 49, "spread")]
         decode_cases += [(32, s_max, hq, 8, d, torch.float32, n, None) for n in (129, "per-row")]
         decode_cases += [(4, s_max, hq, 8, d, torch.float32, n, 48) for n in (1, 97, "spread")]
+    # seamless-m4t-large-v2's two decode shapes, G = 1 over 16 heads of 64:
+    # the cross-attention over all 4096 frames (B = 2 and 32; a planned
+    # split and, at B = 32, a forced one) and the self-attention cache
+    decode_cases += [(b, 4096, 16, 16, 64, dtype, 4096, None)
+                     for b in (2, 32) for dtype in (torch.float32, torch.bfloat16)]
+    decode_cases += [(32, 4096, 16, 16, 64, torch.bfloat16, n, sl)
+                     for n in (1, 1500, "spread") for sl in (None, 1024)]
+    decode_cases += [(32, s_max, 16, 16, 64, torch.bfloat16, n, None) for n in (129, 144)]
     max_err = 0.0
     for b, sm, hq, hkv, d, dtype, length, sl in decode_cases:
         q = randn((b, 1, hq, d), dtype)
@@ -392,12 +556,18 @@ def phase_kernels(torch):
         # like the TPU kernel, gives zeros: held to the plain split-and-merge
         want = (ref.decode_attention(q, kc, vc, lens) if int(lens.min()) > 0 else
                 ref.decode_attention_split(q, kc, vc, lens, plan[1]))
-        err = check_close(torch, got, want, TOL[dn],
-                          f"decode_attention {b}x{sm}x{hq}/{hkv}x{d} {dn} len={length} "
-                          f"splits={plan}")
+        what = f"decode_attention {b}x{sm}x{hq}/{hkv}x{d} {dn} len={length} splits={plan}"
+        err = check_close(torch, got, want, TOL[dn], what)
+        scaled = check_scaled(torch, got, want, SCALED_TOL[dn], what)
+        skipped = ""
+        if sm >= LONG_KEYS and isinstance(length, int) and length >= 128:
+            bad = skipped_tile_err(torch, want, dn, what, ref.decode_attention(
+                q, skip_tile(torch, kc), skip_tile(torch, vc), lens - 64))
+            skipped = f"; the plain version skipping rows 64-127: {bad:.3e} of the rms"
         max_err = max(max_err, err)
         log(f"[kernels] decode_attention B={b} S_max={sm} Hq={hq} Hkv={hkv} D={d} {dn} "
-            f"len={length} splits={plan}: max abs err {err:.3e}")
+            f"len={length} splits={plan}: max abs err {err:.3e}, {scaled:.3e} of its "
+            f"row's rms (gate {SCALED_TOL[dn]}){skipped}")
     # rows past the length are never read: junk there changes nothing (bf16, split)
     q = randn((2, 1, 14, 64), torch.bfloat16)
     kc, vc = (randn((2, s_max, 2, 64), torch.bfloat16) for _ in range(2))
@@ -511,6 +681,27 @@ def phase_kernels(torch):
             f"{plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
             f"{nbytes / 1e6:.2f} MB); kernel/sdpa {ms / lib_ms:.3f}; splits "
             f"{_dec.split_plan(b, hkv, s_max)}")
+    # seamless-m4t-large-v2's cross-attention at decode: one query a head
+    # over all 4096 encoder frames, G = 1, buckets 2 and 32
+    h, d, s_enc = 16, 64, 4096
+    lens = torch.full((1,), s_enc, dtype=torch.int32, device="cuda")
+    for b in (2, 32):
+        q = randn((b, 1, h, d), torch.bfloat16)
+        kc, vc = (randn((b, s_enc, h, d), torch.bfloat16) for _ in range(2))
+        qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        ms = device_ms(torch, lambda: ops.decode_attention(q, kc, vc, lens))
+        plain_ms = device_ms(torch, lambda: ref.decode_attention(q, kc, vc, lens))
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        nbytes = 2 * (2 * q.numel() + 2 * kc.numel()) + 4
+        bound_ms, bound_by = bound(nbytes, 4 * b * h * d * s_enc, "bfloat16")
+        sweep = ", ".join(
+            f"{sl}: {device_ms(torch, lambda: _dec.decode_attention_fwd(q, kc, vc, lens, split_len=sl)):.5f}"
+            for sl in (512, 1024, 2048, 4096))
+        log(f"[kernels] decode_attention timed at seamless-m4t's cross-attention (B={b} "
+            f"S_max={s_enc} len={s_enc} Hq=Hkv={h} D={d} bf16): kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB); kernel/sdpa {ms / lib_ms:.3f}; splits "
+            f"{_dec.split_plan(b, h, s_enc)}; ms by rows a split {sweep}")
     one = torch.zeros(1, device="cuda")
     log(f"[kernels] launch floor: one elementwise kernel on 1 element "
         f"{device_ms(torch, lambda: one.add_(1)):.5f} ms")
@@ -681,7 +872,10 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     MoE and VLM families; for xLSTM the mLSTM kernel once per mLSTM block and prefill
     (decode runs the plain recurrent cells); for the hybrid the SSD scan
     once per Mamba layer and prefill (decode runs the plain step) and
-    attention once per application of the shared block."""
+    attention once per application of the shared block; for the
+    encoder-decoder flash once per encoder layer and twice per decoder
+    layer (self, cross) and prefill, decode twice per decoder layer and
+    step."""
     from repro_torch.kernels import ops
     from repro_torch.models import hybrid
 
@@ -689,6 +883,9 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     if cfg.family in ("dense", "moe", "vlm"):  # the decoder transformer
         want["flash_attention"] = cfg.num_layers * prefills
         want["decode_attention"] = cfg.num_layers * steps
+    elif cfg.family == "encdec":
+        want["flash_attention"] = (cfg.encoder_layers + 2 * cfg.num_layers) * prefills
+        want["decode_attention"] = 2 * cfg.num_layers * steps
     elif cfg.family == "ssm":
         n_mlstm = cfg.num_layers - cfg.num_layers // (cfg.mlstm_per_slstm + 1)
         want["mlstm_attention"] = n_mlstm * prefills
@@ -717,11 +914,15 @@ def phase_model(torch, arch: str):
     b, s, steps = 2, 24, 8
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int64))
     forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (steps, b, 1), dtype=np.int64))
+    frames = torch.from_numpy(
+        rng.standard_normal((b, MODEL_FRAMES, cfg.d_model)).astype(np.float32))
     outs = {}
     for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
         ops.reset_launches()
         cache = model.init_cache(b, s + steps, device=dev)
-        logits, cache = model.prefill(params, prompt.to(dev), cache)
+        inputs = (prompt.to(dev) if cfg.family != "encdec" else
+                  {"frames": frames.to(dev), "tokens": prompt.to(dev)})
+        logits, cache = model.prefill(params, inputs, cache)
         seq = [logits]
         for i in range(steps):
             logits, cache = model.decode_step(params, forced[i].to(dev), cache)
@@ -1136,6 +1337,36 @@ def port_kernel(name: str):
     return next((w for p, w in KERNEL_PREFIXES.items() if m.group(1).startswith(p)), None)
 
 
+def profiled_kernels(torch, prof, counted: dict, what: str):
+    """The device kernels of one profiled run: (their number, busy ms, the
+    port's kernels seen by wrapper, table lines of the top 8 by device
+    time plus the port's own wherever they rank), or None where the
+    profiler recorded no device time. Fails if the port's kernels the
+    profiler saw differ by name from ``counted``, the launches the
+    wrappers counted in the same run."""
+    import collections
+
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    by_name, count = collections.Counter(), collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        count[e.name] += 1
+    seen = collections.Counter()
+    for name, n in count.items():
+        wrapper = port_kernel(name)
+        if wrapper:
+            seen[wrapper] += n
+    if {k: n for k, n in counted.items() if n} != dict(seen):
+        raise AssertionError(f"{what}: profiled port kernels {dict(seen)} != counted "
+                             f"launches {counted}")
+    top = by_name.most_common(8)
+    top += [(n, ms) for n, ms in by_name.items() if port_kernel(n) and n not in dict(top)]
+    lines = [f"  {ms:9.3f} ms  {count[name]:6d}x  {name[:90]}" for name, ms in top]
+    return len(kernels), sum(by_name.values()), dict(seen), lines
+
+
 def profile_generate(torch, engine, cfg, what: str) -> dict:
     """Where one full-width batch's time goes: torch.profiler over one
     generate() at the largest bucket; kernels per prefill-or-step, device
@@ -1143,8 +1374,6 @@ def profile_generate(torch, engine, cfg, what: str) -> dict:
     kernels the profiler saw differ by name from the launches the wrappers
     counted (a replay adds what its graph recorded at capture). Returns
     the unprofiled wall ms, busy ms and idle share."""
-    import collections
-
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1163,38 +1392,21 @@ def profile_generate(torch, engine, cfg, what: str) -> dict:
     counted = {k: n - counted0[k] for k, n in ops.launches().items()}
     steps = engine.decode_steps - steps0
     unprofiled_ms = 1e3 * timing["latency_s"]
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
     log(f"[profile] {cfg.name}, {what}: generate(32 x 128 prompt, {engine.ecfg.gen_len} "
         f"tokens): {unprofiled_ms:.2f} ms unprofiled, {wall_ms:.2f} ms under the profiler, "
         f"{steps} decode steps")
-    if not kernels:
+    found = profiled_kernels(torch, prof, counted, what)
+    if found is None:
         log("[profile] torch.profiler recorded no device time: busy share not measured")
         return {"wall_ms": unprofiled_ms, "busy_ms": float("nan"), "idle": float("nan")}
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    by_name = collections.Counter()
-    count = collections.Counter()
-    for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us() / 1e3
-        count[e.name] += 1
-    seen = collections.Counter()
-    for name, n in count.items():
-        wrapper = port_kernel(name)
-        if wrapper:
-            seen[wrapper] += n
-    if {k: n for k, n in counted.items() if n} != dict(seen):
-        raise AssertionError(f"{what}: profiled port kernels {dict(seen)} != counted "
-                             f"launches {counted}")
+    n, busy_ms, seen, lines = found
     idle = 1 - busy_ms / unprofiled_ms
-    log(f"[profile] {len(kernels)} device kernels ({len(kernels) / (steps + 1):.0f} per "
+    log(f"[profile] {n} device kernels ({n / (steps + 1):.0f} per "
         f"prefill-or-step), busy {busy_ms:.2f} ms of {wall_ms:.2f} ms: device idle share "
         f"{1 - busy_ms / wall_ms:.3f} (against the unprofiled {unprofiled_ms:.2f} ms: "
-        f"{idle:.3f}); port kernels by name == counted launches: {dict(seen)}")
-    top = by_name.most_common(8)
-    # and the port's own kernels wherever they rank
-    top += [(n, ms) for n, ms in by_name.items() if port_kernel(n) and n not in dict(top)]
-    for name, ms in top:
-        log(f"[profile]   {ms:8.3f} ms  {count[name]:6d}x  {name[:90]}")
+        f"{idle:.3f}); port kernels by name == counted launches: {seen}")
+    for line in lines:
+        log(f"[profile] {line}")
     return {"wall_ms": unprofiled_ms, "busy_ms": busy_ms, "idle": idle}
 
 
@@ -1579,6 +1791,372 @@ def phase_wide(torch) -> dict:
         torch.cuda.empty_cache()
     return launches
 
+# ------------------------------------------------------- encoder-decoder
+def plain_flash(torch, q, k, v, causal: bool):
+    """``ref.flash_attention`` two batch rows at a time, so the encoder's
+    f32 scores stay at 2.1 GB."""
+    from repro_torch.kernels import ref
+
+    return torch.cat([ref.flash_attention(q[i:i + 2], k[i:i + 2], v[i:i + 2], causal=causal)
+                      for i in range(0, q.shape[0], 2)])
+
+
+@contextlib.contextmanager
+def plain_attention(torch, skip: bool = False):
+    """Within the block the models' attention runs the kernels' plain
+    versions on the card; the launch counts do not move. With ``skip`` the
+    flash one drops keys 64-127 wherever there are at least
+    :data:`LONG_KEYS` of them (the encoder and the cross-attention): what
+    a kernel that skipped one tile would compute."""
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.flash_attention, ops.decode_attention
+
+    def flash(q, k, v, *, causal=True):
+        if skip and k.shape[1] >= LONG_KEYS:
+            k, v = skip_tile(torch, k), skip_tile(torch, v)
+        return plain_flash(torch, q, k, v, causal)
+
+    ops.flash_attention, ops.decode_attention = flash, ref.decode_attention
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+
+
+@contextlib.contextmanager
+def checked_attention(torch):
+    """Within the block every attention call of the models runs its kernel
+    (through its launcher: this run's launches are not counted) and then,
+    on the same inputs, its plain version on the card: the kernel's output
+    must be within :data:`SCALED_TOL` of it. Yields
+    {call shape: [calls, largest scaled error, None or, for the first call
+    over :data:`LONG_KEYS` keys or more, the plain version skipping keys
+    (cache rows) 64-127 read against the plain version]}."""
+    from repro_torch.kernels import decode_attention as _dec
+    from repro_torch.kernels import flash_attention as _fa
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.flash_attention, ops.decode_attention
+    seen: dict = {}
+
+    def note(kind, got, want, skipped):
+        dn = str(got.dtype).split(".")[-1]
+        err = check_scaled(torch, got, want, SCALED_TOL[dn], f"{kind} on the loop's inputs")
+        row = seen.setdefault(kind, [0, 0.0, None])
+        if row[0] == 0 and skipped is not None:
+            row[2] = scaled_err(torch, skipped(), want)
+        row[0] += 1
+        row[1] = max(row[1], err)
+
+    def flash(q, k, v, *, causal=True):
+        got = _fa.flash_attention_fwd(q, k, v, causal=causal)
+        note(f"flash Sq={q.shape[1]} Sk={k.shape[1]} causal={causal}", got,
+             plain_flash(torch, q, k, v, causal),
+             (lambda: plain_flash(torch, q, skip_tile(torch, k), skip_tile(torch, v), causal))
+             if k.shape[1] >= LONG_KEYS else None)
+        return got
+
+    def decode(q, kc, vc, lens):
+        got = _dec.decode_attention_fwd(
+            q, kc, vc, torch.as_tensor(lens, device=q.device).to(torch.int32))
+        note(f"decode S_max={kc.shape[1]}", got, ref.decode_attention(q, kc, vc, lens),
+             (lambda: ref.decode_attention(q, skip_tile(torch, kc), skip_tile(torch, vc),
+                                           lens - 64))
+             if kc.shape[1] >= LONG_KEYS else None)
+        return got
+
+    ops.flash_attention, ops.decode_attention = flash, decode
+    try:
+        yield seen
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+
+
+def encdec_greedy(torch, model, params, frames, tokens, n_tokens: int, max_len: int,
+                  forced=None):
+    """``Model.prefill`` on {frames, tokens}, then ``n_tokens - 1`` greedy
+    ``decode_step`` calls (fed ``forced``'s tokens instead, where given) →
+    (tokens (B, n_tokens) on the card, every step's logits (B, n_tokens,
+    V), the prefill's and each step's device ms by CUDA events)."""
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    cache = model.init_cache(tokens.shape[0], max_len, device="cuda")
+    marks = [event()]
+    logits, cache = model.prefill(params, {"frames": frames, "tokens": tokens}, cache)
+    marks.append(event())
+    seen = [logits]
+    out = [logits[:, -1].argmax(-1)]
+    for i in range(n_tokens - 1):
+        fed = out[-1] if forced is None else forced[:, i]
+        logits, cache = model.decode_step(params, fed[:, None], cache)
+        seen.append(logits)
+        out.append(logits[:, -1].argmax(-1))
+        marks.append(event())
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return torch.stack(out, 1), torch.cat(seen, 1), ms[0], ms[1:]
+
+
+def profile_encdec(torch, model, params, frames, tokens, timed_ms: float) -> None:
+    """Where one prefill + 15 greedy steps' time goes: torch.profiler over
+    the loop, device busy time against the timed (unprofiled) loop, and
+    the kernels by device time; the port's kernels the profiler saw must
+    be the launches the wrappers counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    what = f"seamless-m4t B={tokens.shape[0]} profiled loop"
+    counted0 = ops.launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        encdec_greedy(torch, model, params, frames, tokens, ENCDEC_TOKENS, ENCDEC_MAX_LEN)
+    counted = {k: n - counted0[k] for k, n in ops.launches().items()}
+    found = profiled_kernels(torch, prof, counted, what)
+    if found is None:
+        log("[encdec] torch.profiler recorded no device time: busy share not measured")
+        return
+    n, busy_ms, seen, lines = found
+    log(f"[encdec] profile, B={tokens.shape[0]} prefill + {ENCDEC_TOKENS - 1} steps: "
+        f"{n} device kernels, busy {busy_ms:.2f} ms against the timed "
+        f"{timed_ms:.2f} ms: idle share {1 - busy_ms / timed_ms:.3f}; port kernels by name "
+        f"== counted launches: {seen}")
+    for line in lines:
+        log(f"[encdec] {line}")
+
+
+def phase_encdec(torch) -> dict:
+    """seamless-m4t-large-v2 at full width, nothing cut, bf16 weights from
+    seed 0: ``Model.prefill`` over (B, 4096, 1024) random frames and a
+    128-token prompt, then 15 greedy ``decode_step`` calls, at B = 2 and 32.
+    Each loop runs four times: counted (launch counts set to 0 just
+    before and read just after: 72 flash a prefill, 48 decode a step),
+    timed (CUDA events), and with the attention's plain versions on the
+    card: the bf16 logits on the same inputs held to :data:`ENCDEC_BF16_TOL`
+    (the prefill's, and each step's up to the row's first differing greedy
+    token, where the top-2 margins are printed); and checked, each
+    attention call held to its plain version on its own inputs
+    (:data:`SCALED_TOL`). At B = 2 also a plain prefill that skips one key
+    tile (printed: the logits barely see it); and the same loop in f32: the
+    plain versions fed the kernels' greedy tokens, every step's logits
+    (the prefill's and 15 decode steps') held to the kernels' to
+    :data:`ENCDEC_F32_TOL`. Returns the counted loops' launches, summed."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    t0 = time.monotonic()
+    cfg = get_config("seamless-m4t-large-v2")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[encdec] {cfg.name}: {cfg.encoder_layers} encoder + {cfg.num_layers} decoder "
+        f"layers, d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}, "
+        f"vocab {cfg.vocab_size}: {n_params:,} params in {cfg.param_dtype} "
+        f"({2 * n_params / 1e9:.2f} GB), initialised in {time.monotonic() - t0:.1f} s")
+    if n_params != 1_632_256_000:
+        raise AssertionError(f"{cfg.name}: {n_params} params, not the JAX tree's 1,632,256,000")
+    rng = np.random.default_rng(0)
+    steps = ENCDEC_TOKENS - 1
+    want = expected_launches(cfg, 1, steps)
+    launches: dict = {}
+    for b in ENCDEC_BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        frames = torch.randn((b, ENCDEC_FRAMES, cfg.d_model), generator=gen,
+                             device="cuda").to(cfg.dtype)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (b, ENCDEC_PROMPT), dtype=np.int64)).cuda()
+        ops.reset_launches()
+        got, logits, _, _ = encdec_greedy(torch, model, params, frames, tokens, ENCDEC_TOKENS,
+                                          ENCDEC_MAX_LEN)
+        counts = ops.launches()
+        if counts != want:
+            raise AssertionError(f"{cfg.name} B={b}: kernel launches {counts} != {want}")
+        add_counts(launches, counts)
+        if got.shape != (b, ENCDEC_TOKENS) or not bool(((got >= 0) & (got < cfg.vocab_size)).all()):
+            raise AssertionError(f"{cfg.name} B={b}: tokens {tuple(got.shape)} out of range")
+        again, _, prefill_ms, step_ms = encdec_greedy(torch, model, params, frames, tokens,
+                                                      ENCDEC_TOKENS, ENCDEC_MAX_LEN)
+        if not torch.equal(again, got):
+            raise AssertionError(f"{cfg.name} B={b}: two kernel runs gave different tokens")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9  # the kernels' path alone
+        if b == max(ENCDEC_BATCHES):
+            profile_encdec(torch, model, params, frames, tokens, prefill_ms + sum(step_ms))
+        with plain_attention(torch):
+            plain, plain_logits, _, _ = encdec_greedy(torch, model, params, frames, tokens,
+                                                      ENCDEC_TOKENS, ENCDEC_MAX_LEN)
+        same = got == plain
+        # each row's first differing greedy token (ENCDEC_TOKENS where none):
+        # up to and including it, both paths were fed the same tokens
+        first = [int((~r).nonzero()[0]) if not bool(r.all()) else ENCDEC_TOKENS for r in same]
+        diff = (logits.float() - plain_logits.float()).abs().amax(-1)  # (B, tokens)
+        common = (torch.arange(ENCDEC_TOKENS, device="cuda")[None, :]
+                  <= torch.tensor(first, device="cuda")[:, None])
+        bf16_err, prefill_err = float(diff[common].max()), float(diff[:, 0].max())
+        log(f"[encdec] B={b}: prefill {prefill_ms:.3f} ms, decode step median "
+            f"{statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
+            f"{max(step_ms):.3f}; CUDA events), peak device memory {peak_gb:.2f} GB "
+            f"(weights and all); kernel launches {counts}; "
+            f"greedy tokens against the plain attention on the card: {int(same.sum())} of "
+            f"{same.numel()} equal, {first.count(ENCDEC_TOKENS)} of {b} rows identical; bf16 "
+            f"logits on the same inputs max abs diff {bf16_err:.3e} (prefill "
+            f"{prefill_err:.3e}; bound {ENCDEC_BF16_TOL}; logits max |x| "
+            f"{float(plain_logits[:, 0].abs().max()):.3f})")
+        for r, t in enumerate(first):
+            if t < ENCDEC_TOKENS:
+                mk, mp = (float(x[0] - x[1]) for x in
+                          (logits[r, t].float().topk(2).values,
+                           plain_logits[r, t].float().topk(2).values))
+                log(f"[encdec]   row {r}: first differing token {t} (kernels {int(got[r, t])}, "
+                    f"plain {int(plain[r, t])}); top-2 logit margin there {mk:.4e} (kernels), "
+                    f"{mp:.4e} (plain), logits max abs diff {float(diff[r, t]):.3e}")
+        if bf16_err > ENCDEC_BF16_TOL:
+            raise AssertionError(f"{cfg.name} B={b}: bf16 logits differ from the plain "
+                                 f"attention's by {bf16_err:.3e}, over {ENCDEC_BF16_TOL}")
+        if b == min(ENCDEC_BATCHES):
+            with plain_attention(torch, skip=True):
+                _, skipped, _, _ = encdec_greedy(torch, model, params, frames, tokens, 1,
+                                                 ENCDEC_MAX_LEN)
+            moved = float((skipped[:, 0].float() - plain_logits[:, 0].float()).abs().max())
+            log(f"[encdec] B={b}: a plain prefill that skips keys 64-127 of the encoder's and "
+                f"the cross-attention's 4096 moves the bf16 prefill logits by {moved:.3e} "
+                f"(bound {ENCDEC_BF16_TOL}): within rounding's reach of the logits")
+            del skipped
+        with checked_attention(torch) as seen:
+            checked, _, _, _ = encdec_greedy(torch, model, params, frames, tokens,
+                                              ENCDEC_TOKENS, ENCDEC_MAX_LEN)
+        calls = {w: sum(n for kind, (n, _, _) in seen.items() if kind.startswith(w))
+                 for w in ("flash", "decode")}
+        if calls != {"flash": want["flash_attention"], "decode": want["decode_attention"]}:
+            raise AssertionError(f"{cfg.name} B={b}: checked {calls} attention calls, not the "
+                                 f"loop's {want}")
+        if not torch.equal(checked, got):
+            raise AssertionError(f"{cfg.name} B={b}: the checked loop's tokens differ")
+        log(f"[encdec] B={b}: every attention call of the loop held to its plain version on "
+            f"its own inputs (max |err| / row rms, gate {SCALED_TOL['bfloat16']}): " + "; ".join(
+                f"{kind}: {n} calls, largest {err:.3e}"
+                + ("" if skip is None else f", the plain version skipping rows 64-127 {skip:.3e}")
+                for kind, (n, err, skip) in seen.items()))
+        del frames, tokens, got, again, plain, logits, plain_logits, diff, checked
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # f32 at B = 2: every step's logits, kernels against plain versions fed
+    # the kernels' tokens
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    model32 = Model(cfg32)
+    params32 = _tree_to(params, torch.float32)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    frames = torch.randn((2, ENCDEC_FRAMES, cfg.d_model), generator=gen, device="cuda")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, ENCDEC_PROMPT))).cuda()
+    ops.reset_launches()
+    got, logits, _, _ = encdec_greedy(torch, model32, params32, frames, tokens, ENCDEC_TOKENS,
+                                      ENCDEC_MAX_LEN)
+    counts = ops.launches()
+    if counts != want:
+        raise AssertionError(f"{cfg.name} f32 B=2: kernel launches {counts} != {want}")
+    with plain_attention(torch):
+        plain, plain_logits, _, _ = encdec_greedy(torch, model32, params32, frames, tokens,
+                                                  ENCDEC_TOKENS, ENCDEC_MAX_LEN, forced=got[:, :-1])
+    err = check_close(torch, logits, plain_logits, ENCDEC_F32_TOL,
+                      f"{cfg.name} f32 prefill and decode logits")
+    log(f"[encdec] f32 B=2, prefill + {steps} decode steps, kernels against plain versions on "
+        f"the card fed the same tokens: max abs logit err {err:.3e} (prefill "
+        f"{float((logits[:, 0] - plain_logits[:, 0]).abs().max()):.3e}; tolerance "
+        f"{ENCDEC_F32_TOL}; logits max |x| {float(plain_logits.abs().max()):.3f}); the plain "
+        f"versions' own greedy choice equal at {int((plain == got).sum())} of {got.numel()} "
+        f"tokens; launches {counts}; phase {time.monotonic() - t0:.1f} s")
+    add_counts(launches, counts)
+    del params32, logits, plain_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------ fleet controller
+def phase_fleet(torch) -> None:
+    """The vectorised fleet controller on the card against the CPU: the
+    same observations (made in bulk from seed 0) and the same ticks; every
+    tick's dispatch decisions and timeouts and every AIMD Max_BS must be
+    equal. The card runs the ticks twice; the second is timed."""
+    import numpy as np
+
+    from repro_torch.core import fleet_controller as fc
+
+    t0 = time.monotonic()
+    n, nb, ticks = FLEET_N, FLEET_BUCKETS, FLEET_TICKS
+    rng = np.random.default_rng(0)
+    data = {  # distinct endpoints within a tick: a repeated one is not defined
+        "ep_up": np.stack([rng.permutation(n)[:FLEET_UPSTREAM] for _ in range(ticks)]),
+        "bucket": rng.integers(0, nb, (ticks, FLEET_UPSTREAM)),
+        "lat": rng.lognormal(-2.0, 0.6, (ticks, FLEET_UPSTREAM)).astype(np.float32),
+        "ep_e2e": np.stack([rng.permutation(n)[:FLEET_E2E] for _ in range(ticks)]),
+        "lat_e2e": rng.lognormal(-1.2, 0.5, (ticks, FLEET_E2E)).astype(np.float32),
+        "was_to": rng.random((ticks, FLEET_E2E)) < 0.3,
+        "queue_len": rng.integers(0, 6, (ticks, n)).astype(np.int32),
+        "frt": rng.uniform(0.0, 0.5, (ticks, n)).astype(np.float32),
+        "slo": rng.uniform(0.2, 1.0, n).astype(np.float32),
+    }
+
+    def run(device):
+        t = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+        state = fc.init_fleet(n, nb, window=FLEET_WINDOW, initial_max_bs=2.0, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        start = time.perf_counter()
+        dispatch, timeouts, max_bs = [], [], []
+        for i in range(ticks):
+            state = fc.record_upstream(state, t["ep_up"][i], t["bucket"][i], t["lat"][i])
+            state = fc.record_e2e(state, t["ep_e2e"][i], t["lat_e2e"][i])
+            state = fc.record_dispatch(state, t["ep_e2e"][i], t["was_to"][i])
+            now, to = fc.timeout_step(state, t["queue_len"][i], t["frt"][i], t["slo"])
+            dispatch.append(now)
+            timeouts.append(to)
+            if i % FLEET_AIMD_EVERY == FLEET_AIMD_EVERY - 1:
+                state = fc.aimd_step(state, t["slo"])
+                max_bs.append(state.max_bs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        return [torch.stack(x).cpu() for x in (dispatch, timeouts, max_bs)], state, secs
+
+    cpu, _, cpu_s = run("cpu")
+    for attempt in range(2):
+        card, state, card_s = run("cuda")
+        for name, a, b in zip(("dispatch_now", "timeout", "max_bs"), card, cpu):
+            if not torch.equal(a, b):
+                bad = (a != b).nonzero()
+                raise AssertionError(f"fleet controller: {name} differs between the card and "
+                                     f"the CPU at {bad.shape[0]} places, first (tick, "
+                                     f"endpoint) {bad[0].tolist()}")
+    # torch.sort puts NaN last on the card too (the percentile relies on it)
+    ring = state.ring
+    count = (~torch.isnan(ring)).sum(-1, keepdim=True)
+    nan_last = torch.isnan(torch.sort(ring, dim=-1).values)
+    if not torch.equal(nan_last, torch.arange(ring.shape[-1], device="cuda") >= count):
+        raise AssertionError("torch.sort on the card does not put NaN last")
+    dispatch, _, max_bs = card
+    log(f"[fleet] {n:,} endpoints x {nb} buckets x {FLEET_WINDOW} samples "
+        f"({ring.numel() * 4 / 1e6:.1f} MB ring, {state.e2e_ring.numel() * 4 / 1e6:.1f} MB e2e "
+        f"ring), {ticks} ticks ({FLEET_UPSTREAM:,} upstream + {FLEET_E2E:,} end-to-end "
+        f"observations a tick, AIMD every {FLEET_AIMD_EVERY}): dispatch now, timeouts and "
+        f"Max_BS equal to the CPU's tick for tick (two card runs); {float(dispatch.float().mean()):.4f} "
+        f"of decisions dispatch now; final Max_BS mean {float(max_bs[-1].mean()):.3f}, min "
+        f"{float(max_bs[-1].min()):.1f}, max {float(max_bs[-1].max()):.1f}; filled ring slots "
+        f"{float(count.sum()) / ring.numel():.3f}; a tick {1e6 * card_s / ticks:.1f} us on the "
+        f"card (host wall, synchronised at the ends), {1e6 * cpu_s / ticks:.1f} us on the host "
+        f"CPU; phase {time.monotonic() - t0:.1f} s")
+
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -1620,6 +2198,10 @@ def main() -> int:
     t0 = time.monotonic()
     add_counts(launches, phase_wide(torch))
     log(f"[wide] phase {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    add_counts(launches, phase_encdec(torch))
+    log(f"[encdec] phase {time.monotonic() - t0:.1f} s")
+    phase_fleet(torch)
     missing = [name for name in rows if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on a serving path: {missing}")

@@ -1,7 +1,7 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
-Only the architectures whose model family the port runs are registered;
-the others raise with a message saying they are not ported yet.
+Every architecture of the JAX package is registered; an unknown id raises
+``KeyError``.
 """
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
@@ -14,6 +14,7 @@ from repro_torch.configs.yi_34b import CONFIG as _yi
 from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2
 from repro_torch.configs.xlstm_1_3b import CONFIG as _xlstm
 from repro_torch.configs.internvl2_76b import CONFIG as _internvl
+from repro_torch.configs.seamless_m4t_large_v2 import CONFIG as _seamless
 
 REGISTRY = {
     "llama4-scout-17b-a16e": _llama4,
@@ -25,24 +26,17 @@ REGISTRY = {
     "zamba2-1.2b": _zamba2,
     "xlstm-1.3b": _xlstm,
     "internvl2-76b": _internvl,
+    "seamless-m4t-large-v2": _seamless,
 }
 
 ARCH_IDS = tuple(REGISTRY)
 
-#: Architectures the JAX package has and the port does not have yet: the
-#: encoder-decoder needs encoder frames at prefill, which the serving path
-#: does not carry.
-NOT_PORTED = (
-    "seamless-m4t-large-v2",
-)
+#: Architectures the JAX package has and the port does not have yet.
+NOT_PORTED = ()
 
 
 def get_config(arch: str) -> ModelConfig:
     try:
         return REGISTRY[arch]
     except KeyError:
-        if arch in NOT_PORTED:
-            raise NotImplementedError(
-                f"arch {arch!r} is not ported to PyTorch yet; "
-                f"ported: {sorted(REGISTRY)}") from None
         raise KeyError(f"unknown arch {arch!r}; available: {sorted(REGISTRY)}") from None

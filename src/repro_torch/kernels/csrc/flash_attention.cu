@@ -3,11 +3,14 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_bhsd (_flash_kernel): causal or full GQA attention with
-// an online softmax (running max, sum and accumulator in f32), keys past
-// the sequence masked, kv tiles entirely above the diagonal skipped, the
-// row sum clamped at 1e-30, masked scores set to -1e30.
+// an online softmax (running max, sum and accumulator in f32), Sq query
+// rows over Sk keys, keys at or past Sk masked, kv tiles entirely above
+// the diagonal skipped, the row sum clamped at 1e-30, masked scores set to
+// -1e30. As in the TPU kernel the causal mask is top-left aligned, key
+// position <= query position, whatever Sq and Sk are (the encoder-decoder's
+// cross-attention is Sq decoder rows over Sk encoder frames, not causal).
 //
-// Layout: q (B, S, Hq, D), k/v (B, S, Hkv, D) and o (B, S, Hq, D), each
+// Layout: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) and o (B, Sq, Hq, D), each
 // addressed through its own element strides (the last dim must be
 // contiguous), so the model's tensors go in without a transpose or copy.
 // q head h reads kv head h / G (G = Hq / Hkv): GQA by indexing.
@@ -17,7 +20,10 @@
 // 7.3 MB each, k+v 2.1 MB), ~5.0 us, against ~0.95 GFLOP of causal work,
 // ~1 us at the bf16 tensor-core peak: bytes bound. At Zamba2's shared block
 // (Hq = Hkv = 32) ~67 MB, ~20 us. Each q, k and v element is read from
-// device memory once per block that needs it.
+// device memory once per block that needs it. The encoder of
+// seamless-m4t-large-v2 (B=32, S=4096, Hq=Hkv=16, D=64, not causal) is the
+// other way round: ~2.2 TFLOP, ~2.2 ms at the bf16 peak, against 1.07 GB,
+// ~0.32 ms: bound by operations.
 //
 // bf16 (every serving run): a tensor-core kernel in the FlashAttention-2
 // shape, on mma.sync.m16n8k16 (bf16 in, f32 accumulate). A block of 4
@@ -35,8 +41,8 @@
 // P is rounded to bf16 in registers and is the A operand of P·V, with V
 // through ldmatrix.trans. Causal kv tiles above the diagonal are not
 // loaded, a warp skips a tile wholly above its own rows, and the diagonal
-// and ragged tiles are masked in registers (rows past S load as zeros,
-// through cp.async's zero fill). The epilogue divides by the clamped row
+// and ragged tiles are masked in registers (rows past Sq or Sk load as
+// zeros, through cp.async's zero fill). The epilogue divides by the clamped row
 // sum, stages the warp's 16 rows in its own part of the q tile and stores
 // them with 16-byte stores.
 //
@@ -95,7 +101,7 @@ template <typename T, int D, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int S, int Hq, int group,
+                 int Sq, int Sk, int Hq, int group,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -129,7 +135,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < C; ++i) {
     const int d = 4 * (sub + kLanesPerRow * i);
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (qpos < S) {
+    if (qpos < Sq) {
       const T* p = qb + qpos * q_ss + d;
       x = make_float4(to_f32(p[0]), to_f32(p[1]), to_f32(p[2]), to_f32(p[3]));
     }
@@ -140,7 +146,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float l = 0.f;
 
   // causal: kv tiles starting past this query tile's last row are skipped
-  const int k_end = causal ? min(S, q0 + kBlockQ) : S;
+  const int k_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile is no longer read
     float* ksf = reinterpret_cast<float*>(ks);
@@ -150,7 +156,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = idx - j * D;
       const int kp = k0 + j;
       float kx = 0.f, vx = 0.f;
-      if (kp < S) {
+      if (kp < Sk) {
         kx = to_f32(kb[kp * k_ss + d]);
         vx = to_f32(vb[kp * v_ss + d]);
       }
@@ -175,7 +181,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       const int kp = k0 + j;
-      const bool ok = kp < S && (!causal || kp <= qpos);
+      const bool ok = kp < Sk && (!causal || kp <= qpos);
       const float sc = ok ? part * scale : kNegInf;
       s[j] = sc;
       tile_max = fmaxf(tile_max, sc);
@@ -205,7 +211,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m = m_new;
   }
 
-  if (qpos < S) {
+  if (qpos < Sq) {
     const float denom = fmaxf(l, 1e-30f);
     T* ob = o + b * o_sb + qpos * o_ss + h * o_sh;
 #pragma unroll
@@ -233,7 +239,7 @@ template <int D>
 __global__ void __launch_bounds__(kMmaWarps * 32, D <= 64 ? 4 : 1)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 int S, int Hq, int group,
+                 int Sq, int Sk, int Hq, int group,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -265,23 +271,24 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * k_sb + hkv * k_sh;
   const bf16* vb = v + b * v_sb + hkv * v_sh;
 
-  // rows [row0, row0 + nrows) of src into dst, zeros past S
-  auto load_rows = [&](bf16* dst, const bf16* src, int64_t row_stride, int row0, int nrows) {
+  // rows [row0, row0 + nrows) of src into dst, zeros at and past `len`
+  auto load_rows = [&](bf16* dst, const bf16* src, int64_t row_stride, int row0, int nrows,
+                       int len) {
     for (int idx = tid; idx < nrows * CH; idx += NTHREADS) {
       const int r = idx / CH;
       const int c = idx - r * CH;
       const int pos = row0 + r;
-      const bool ok = pos < S;
+      const bool ok = pos < len;
       cp_async16(dst + r * LD + c * 8, src + (ok ? pos : 0) * row_stride + c * 8, ok);
     }
   };
 
   // causal: kv tiles starting past this query tile's last row are skipped
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
   const int n_tiles = (k_end + BK - 1) / BK;
-  load_rows(qs, qb, q_ss, q0, BQ);
-  load_rows(ks, kb, k_ss, 0, BK);
-  load_rows(vs, vb, v_ss, 0, BK);
+  load_rows(qs, qb, q_ss, q0, BQ, Sq);
+  load_rows(ks, kb, k_ss, 0, BK, Sk);
+  load_rows(vs, vb, v_ss, 0, BK, Sk);
   cp_async_commit();
 
   const int wrow0 = q0 + warp * 16;        // this warp's first query row
@@ -300,8 +307,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_tiles) {
-      load_rows(ks + (buf ^ 1) * BK * LD, kb, k_ss, (t + 1) * BK, BK);
-      load_rows(vs + (buf ^ 1) * BK * LD, vb, v_ss, (t + 1) * BK, BK);
+      load_rows(ks + (buf ^ 1) * BK * LD, kb, k_ss, (t + 1) * BK, BK, Sk);
+      load_rows(vs + (buf ^ 1) * BK * LD, vb, v_ss, (t + 1) * BK, BK, Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -336,8 +343,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mma_bf16(s[nn + 1], qa, bfr[2], bfr[3]);
         }
       }
-      // scale into log2 units; mask keys past S and, causal, above the diagonal
-      const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > wrow0);
+      // scale into log2 units; mask keys past Sk and, causal, above the diagonal
+      const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > wrow0);
       float mx0 = m0, mx1 = m1;
 #pragma unroll
       for (int nn = 0; nn < NT; ++nn) {
@@ -347,7 +354,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           if (edge) {
             const int col = k0 + nn * 8 + 2 * (lane % 4) + (e & 1);
             const int row = row_lo + (e >> 1) * 8;
-            if (col >= S || (causal && col > row)) x = kNegInf;
+            if (col >= Sk || (causal && col > row)) x = kNegInf;
           }
           s[nn][e] = x;
         }
@@ -419,7 +426,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = idx / CH;
     const int c = idx - r * CH;
     const int pos = wrow0 + r;
-    if (pos < S)
+    if (pos < Sq)
       *reinterpret_cast<uint4*>(ob + pos * o_ss + c * 8) =
           *reinterpret_cast<const uint4*>(ow + r * LD + c * 8);
   }
@@ -428,7 +435,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ----------------------------------------------------------------- launch
 struct Args {
   const void* q; const void* k; const void* v; void* o;
-  int B, S, Hq, Hkv, causal;
+  int B, Sq, Sk, Hq, Hkv, causal;
   long long qs[3], ks[3], vs[3], os[3];
   cudaStream_t stream;
 };
@@ -438,10 +445,11 @@ int launch_f32(const Args& a) {
   // the f32 kv tile in static shared memory: at most 32 KB (D = 64, 128),
   // 28 KB at D = 112, 24 KB at D = 192 (16 rows: 32 would fill all 48 KB)
   constexpr int BK = D <= 64 ? 64 : (D <= 128 ? 32 : 16);
-  dim3 grid((a.S + kBlockQ - 1) / kBlockQ, a.B * a.Hq);
+  dim3 grid((a.Sq + kBlockQ - 1) / kBlockQ, a.B * a.Hq);
   flash_fwd_kernel<float, D, BK><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.S, a.Hq, a.Hq / a.Hkv,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.Sq, a.Sk, a.Hq,
+      a.Hq / a.Hkv,
       a.qs[0], a.qs[1], a.qs[2], a.ks[0], a.ks[1], a.ks[2], a.vs[0], a.vs[1], a.vs[2],
       a.os[0], a.os[1], a.os[2], 1.0f / sqrtf(static_cast<float>(D)), a.causal);
   return 0;
@@ -461,11 +469,12 @@ int launch_bf16(const Args& a, int device) {
     }
   }
   constexpr int BQ = 16 * kMmaWarps;
-  dim3 grid((a.S + BQ - 1) / BQ, a.B * a.Hq);
+  dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.Hq);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   flash_mma_kernel<D><<<grid, kMmaWarps * 32, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.S, a.Hq, a.Hq / a.Hkv,
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.Sq, a.Sk, a.Hq,
+      a.Hq / a.Hkv,
       a.qs[0], a.qs[1], a.qs[2], a.ks[0], a.ks[1], a.ks[2], a.vs[0], a.vs[1], a.vs[2],
       a.os[0], a.os[1], a.os[2], scale_log2, a.causal);
   return 0;
@@ -479,16 +488,16 @@ extern "C" {
 // take (-1 bad head counts or sizes, -2 head dim, -3 dtype), else the
 // cudaError_t of the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int B, int S, int Hq, int Hkv, int D,
+                        int dtype, int B, int Sq, int Sk, int Hq, int Hkv, int D,
                         int causal, long long q_sb, long long q_ss,
                         long long q_sh, long long k_sb, long long k_ss,
                         long long k_sh, long long v_sb, long long v_ss,
                         long long v_sh, long long o_sb, long long o_ss,
                         long long o_sh, int device, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || B * Hq > 65535) return -1;
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || B * Hq > 65535) return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{q, k, v, o, B, S, Hq, Hkv, causal,
+  const Args a{q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
                {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
                {o_sb, o_ss, o_sh}, static_cast<cudaStream_t>(stream)};
   int rc;

@@ -31,7 +31,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_I, _P]
+_ARGTYPES = [_P, _P, _P, _P] + [_I] * 8 + [_L] * 12 + [_I, _P]
 
 
 def _lib() -> ctypes.CDLL:
@@ -47,16 +47,18 @@ def _lib() -> ctypes.CDLL:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True) -> torch.Tensor:
-    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D), CUDA → (B, S, Hq, D).
+    """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D), CUDA → (B, Sq, Hq, D).
 
-    Launches on the current stream and does not synchronise. Raises on
-    anything the kernel does not take.
+    Sq and Sk may differ, as in the TPU kernel: keys at or past Sk are
+    masked and the causal mask is top-left aligned (key <= query
+    position). Launches on the current stream and does not synchronise.
+    Raises on anything the kernel does not take.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes 4-D (B, S, H, D) tensors")
     b, s, hq, d = q.shape
-    hkv = k.shape[2]
-    if k.shape != (b, s, hkv, d) or v.shape != k.shape:
+    sk, hkv = k.shape[1], k.shape[2]
+    if k.shape != (b, sk, hkv, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
     if hq % hkv:
@@ -78,7 +80,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _lib()
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        DTYPE_CODES[q.dtype], b, s, hq, hkv, d, int(causal),
+        DTYPE_CODES[q.dtype], b, s, sk, hq, hkv, d, int(causal),
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),

@@ -81,7 +81,11 @@ def _no_kernel(t: torch.Tensor, what: str):
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) → (B, S, Hq, D)."""
+    """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) → (B, Sq, Hq, D).
+
+    Sq and Sk may differ (the encoder-decoder's cross-attention), as in
+    the TPU kernel: ``causal`` keeps key position <= query position,
+    counted from the first row of each (top-left aligned)."""
     if q.device.type == "cuda":
         out = _fa.flash_attention_fwd(q, k, v, causal=causal)
         count_launch(flash_attention)

@@ -19,7 +19,9 @@ from repro_torch.models.attention import (
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """Plain version of ops.flash_attention (full-matrix GQA attention)."""
+    """Plain version of ops.flash_attention (full-matrix GQA attention):
+    q (B, Sq, Hq, D) over k, v (B, Sk, Hkv, D), the causal mask top-left
+    aligned (key <= query position), as the TPU kernel masks."""
     return _naive(q, k, v, causal=causal)
 
 

@@ -43,7 +43,12 @@ from repro_torch.core.proxy import MLProxy
 from repro_torch.core.request import Batch, Request
 from repro_torch.serverless.platform import PlatformConfig
 from repro_torch.serving.batcher import EngineBackedLatency, ReplicaPoolTarget
-from repro_torch.serving.engine import EngineConfig, InferenceEngine, ReplicaPool
+from repro_torch.serving.engine import (
+    UNSERVED_FAMILIES,
+    EngineConfig,
+    InferenceEngine,
+    ReplicaPool,
+)
 from repro_torch.simulation.arrivals import PoissonProcess
 from repro_torch.simulation.simulator import Simulator
 
@@ -201,15 +206,21 @@ def build_simulator(engine: InferenceEngine, *, rate: float, duration: float,
                     slo_s: float, prompt_len: int, gen_len: Optional[int] = None,
                     timings: Optional[Dict[Tuple[int, int], float]] = None,
                     policy: str = "mlproxy", seed: int = 0,
-                    snapshot: Optional[str] = None) -> Simulator:
+                    snapshot: Optional[str] = None,
+                    fixed_latency: bool = False) -> Simulator:
     """The JAX driver's simulation over ``engine``: Poisson arrivals at
     ``rate`` for ``duration`` virtual seconds, ``policy`` in front of a
     ``ServerlessPlatform`` with one warm container and 0.5 s cold starts,
     every batch executed by the engine. ``timings`` (``warmup()``'s) seed
     the latency model's per-bucket estimates, so the first RT95 probes do
-    not see 0.0. With ``snapshot`` naming a file that exists, the policy
-    resumes from the control-plane state saved there."""
-    workload = EngineBackedLatency(engine, prompt_len=prompt_len, gen_len=gen_len)
+    not see 0.0. With ``fixed_latency`` the service times are each batch
+    bucket's fastest warm call instead, held for the whole run (every
+    batch still runs on the engine). With ``snapshot`` naming a file that
+    exists, the policy resumes from the control-plane state saved there."""
+    workload = EngineBackedLatency(engine, prompt_len=prompt_len, gen_len=gen_len,
+                                   fixed=fixed_latency)
+    if fixed_latency:
+        timings = workload.warm_timings()
     if timings:
         workload.seed(timings)
     policy_kwargs = ({"bucketing": "pow2",
@@ -263,7 +274,8 @@ def summarize(result: Dict[str, Any]) -> Dict[str, Any]:
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", default="qwen2-0.5b", choices=list(ARCH_IDS))
+    p.add_argument("--arch", default="qwen2-0.5b",
+                   choices=[a for a in ARCH_IDS if get_config(a).family not in UNSERVED_FAMILIES])
     p.add_argument("--duration", type=float, default=60.0,
                    help="simulated seconds of arrivals")
     p.add_argument("--rate", type=float, default=None,
@@ -277,6 +289,10 @@ def main() -> None:
     p.add_argument("--device", default="cuda")
     p.add_argument("--snapshot", default=None,
                    help="path to persist/restore proxy control-plane state")
+    p.add_argument("--fixed-latency", action="store_true",
+                   help="service times held at each batch bucket's fastest of five "
+                        "warm calls (batches still run on the engine), so the run's "
+                        "decisions do not move with the host's load")
     args = p.parse_args()
 
     cfg = get_config(args.arch)
@@ -297,7 +313,8 @@ def main() -> None:
           f"SLO {slo_s * 1000:.0f} ms")
     sim = build_simulator(engine, rate=rate, duration=args.duration, slo_s=slo_s,
                           prompt_len=prompt_len, gen_len=args.gen_len, timings=timings,
-                          seed=args.seed, snapshot=args.snapshot)
+                          seed=args.seed, snapshot=args.snapshot,
+                          fixed_latency=args.fixed_latency)
     if args.snapshot and os.path.exists(args.snapshot):
         print(f"[serve] restored proxy state (Max_BS={sim.policy.max_bs})")
     batches0 = engine.stats["batches"]

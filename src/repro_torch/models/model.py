@@ -5,8 +5,9 @@
     logits, cache = model.prefill(params, tokens, cache)
     logits, cache = model.decode_step(params, tokens, cache)
 
-The dense, moe and vlm families (the decoder transformer), ssm (xLSTM) and
-hybrid (Zamba2) are ported; encdec raises.
+Every family of the JAX package is ported: dense, moe and vlm (the decoder
+transformer), ssm (xLSTM), hybrid (Zamba2) and encdec (SeamlessM4T, whose
+``prefill`` and ``forward`` take ``{"frames", "tokens"}``, as in JAX).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, transformer, xlstm_model
+from repro_torch.models import encdec, hybrid, transformer, xlstm_model
 
 Params = Dict[str, Any]
 
@@ -25,8 +26,12 @@ _FAMILY_MODULES = {
     "vlm": transformer,
     "ssm": xlstm_model,
     "hybrid": hybrid,
+    "encdec": encdec,
 }
 #: Families whose attention takes RoPE tables (an engine builds them once).
+#: The encoder-decoder's ``rope=`` is its decoder's table, built per call
+#: when not given (the engine does not serve it); its encoder's is S_enc
+#: rows, built from the frames' length at each call.
 _ROPE_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 #: Families whose cache is recurrent state that prefill reads: a reused
 #: cache must first be put back to ``init_cache``'s values. (The hybrid

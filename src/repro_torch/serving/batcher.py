@@ -40,19 +40,41 @@ class EngineBackedLatency(LatencyModel):
     RT95 probes see realistic per-bucket latency instead of 0.0 — a cold
     0.0 estimate makes the scheduler promise free batches until real
     samples correct it.
+
+    With ``fixed=True`` the seeded estimates never move: every batch still
+    runs on the engine, but its service time is its bucket's seeded
+    latency, not the wall time of that call. Seeded from
+    :meth:`warm_timings`, a run's decisions then do not depend on how
+    loaded the host is while it runs.
     """
 
     name = "engine"
     noise_cv = 0.0  # real wall-clock variation is the noise
 
     def __init__(self, engine: InferenceEngine, prompt_len: int = 16,
-                 gen_len: Optional[int] = None, warmup: bool = False) -> None:
+                 gen_len: Optional[int] = None, warmup: bool = False,
+                 fixed: bool = False) -> None:
         self.engine = engine
         self.prompt_len = prompt_len
         self.gen_len = gen_len
+        self.fixed = fixed
         self._ema: Dict[int, float] = {}
         if warmup:
             self.seed(engine.warmup(plen=prompt_len))
+
+    def warm_timings(self, calls: int = 5) -> Dict[Tuple[int, int], float]:
+        """(batch bucket, ``prompt_len``) → the fastest of ``calls`` timed
+        ``generate()`` calls at that bucket, on a warm engine: one call
+        slowed by other work on the host does not set a bucket's time."""
+        rng = np.random.default_rng(0)
+        out = {}
+        for bucket in self.engine.ecfg.batch_buckets:
+            prompts = rng.integers(0, self.engine.cfg.vocab_size,
+                                   size=(bucket, self.prompt_len)).astype(np.int32)
+            out[(bucket, self.prompt_len)] = min(
+                self.engine.generate(prompts, gen_len=self.gen_len)[1]["latency_s"]
+                for _ in range(calls))
+        return out
 
     def seed(self, timings: Mapping[Tuple[int, int], float]) -> None:
         """Seed per-bucket EMAs from ``warmup()`` timings.
@@ -108,8 +130,11 @@ class EngineBackedLatency(LatencyModel):
             _, timing = self.engine.generate(prompts, gen_len=self.gen_len)
             bucket = timing["bucket"]
             dt = timing["latency_s"]
-            prev = self._ema.get(bucket)
-            self._ema[bucket] = dt if prev is None else 0.8 * prev + 0.2 * dt
+            if self.fixed:
+                dt = self._ema.setdefault(bucket, dt)
+            else:
+                prev = self._ema.get(bucket)
+                self._ema[bucket] = dt if prev is None else 0.8 * prev + 0.2 * dt
             total += dt
             remaining -= n
         return total

@@ -141,12 +141,21 @@ class CapturedGraph:
     launches: Dict[str, int]
 
 
+#: Families the engine does not serve: as in the JAX engine, which hands
+#: ``prefill`` a token array, the encoder-decoder's frames have no way in.
+UNSERVED_FAMILIES = ("encdec",)
+
+
 class InferenceEngine:
     """Single-replica engine: bucketed prefill + greedy decode on one device."""
 
     def __init__(self, cfg: ModelConfig, engine_cfg: EngineConfig,
                  params: Optional[Any] = None, seed: int = 0,
                  device="cuda"):
+        if cfg.family in UNSERVED_FAMILIES:
+            raise NotImplementedError(
+                f"the engine prefills token prompts; family {cfg.family!r} also needs "
+                "encoder frames (drive it through Model.prefill with {'frames', 'tokens'})")
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.device = torch.device(device)

@@ -271,10 +271,10 @@ def test_launchers_refuse_misaligned_vector_layouts():
 
 #: the kernels each model's prefill and decode step launch
 MODEL_KERNELS = {"qwen2-0.5b": ("flash", "decode"), "zamba2-1.2b": ("flash", "decode", "ssd"),
-                 "xlstm-1.3b": ("mlstm",)}
+                 "xlstm-1.3b": ("mlstm",), "seamless-m4t-large-v2": ("flash", "decode")}
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "zamba2-1.2b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", list(MODEL_KERNELS))
 def test_model_attention_inputs_meet_the_kernels_layout_rules(arch, monkeypatch):
     """The tensors the reduced models (in bf16, as served) hand to
     ``ops.flash_attention``, ``ops.decode_attention``,
@@ -321,13 +321,20 @@ def test_model_attention_inputs_meet_the_kernels_layout_rules(arch, monkeypatch)
     monkeypatch.setattr(tops, "ssd_scan", ssd_checked)
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)))
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12)))
+    if cfg.family == "encdec":  # 40 encoder frames: the cross-attention's Sk
+        frames = torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32))
+        prompt = {"frames": frames.to(cfg.dtype), "tokens": prompt}
     cache = model.init_cache(2, 16)
     logits, cache = model.prefill(params, prompt, cache)
     model.decode_step(params, logits.argmax(-1)[:, -1:], cache)
     assert all(seen[name] > 0 for name in kernels)
     assert not any(seen[name] for name in seen if name not in kernels)
-    if "decode" in kernels:
+    if cfg.family == "encdec":  # encoder, self and cross; self and cross
+        assert (seen["flash"], seen["decode"]) == (cfg.encoder_layers + 2 * cfg.num_layers,
+                                                   2 * cfg.num_layers)
+    elif "decode" in kernels:
         assert seen["flash"] == seen["decode"]
 
 

@@ -31,6 +31,17 @@ def _close(got, want, dtype, tol=TOL):
                                atol=tol[dtype], rtol=tol[dtype])
 
 
+#: max |err| / rms of each output row, as ``chip_smoke.SCALED_TOL``: over
+#: thousands of keys the outputs are ~sqrt(e / Sk), below TOL's absolute part
+SCALED_TOL = {"float32": 1e-3, "bfloat16": 0.1}
+
+
+def _close_to_scale(got, want, dtype):
+    got, want = got.float().cpu(), want.float().cpu()
+    err = (got - want).abs().amax(-1) / want.pow(2).mean(-1).sqrt()
+    assert float(err.max()) <= SCALED_TOL[dtype], float(err.max())
+
+
 def _ssd_plain_f32(x, dt, a, b, c, chunk):
     """The SSD kernel's plain version on the same values in f32, rounded to
     x's dtype once at the end. The kernel computes in f32, as the TPU kernel
@@ -152,6 +163,25 @@ class TestKernelsOnCard:
                 _close(got, tref.decode_attention_split(q, kc, vc, lens, split_len), dtype)
                 if int(lens.min()) > 0:
                     _close(got, tref.decode_attention(q, kc, vc, lens), dtype)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("d", [64, 192])
+    @pytest.mark.parametrize("sq,sk", [(128, 4096), (200, 200), (24, 257), (257, 24), (1, 130)])
+    def test_flash_kernel_sq_ne_sk_and_full(self, cuda, sq, sk, d, dtype):
+        """Sq query rows over Sk keys (the encoder-decoder's cross-attention
+        is 128 over 4096), full and causal (top-left aligned, as the TPU
+        kernel masks), at G = 1 and 2."""
+        for hq, hkv in ((4, 4), (4, 2)):
+            q, k, v = (t.to(cuda) for t in _inputs(
+                sq + sk + d + hkv, [(2, sq, hq, d), (2, sk, hkv, d), (2, sk, hkv, d)], dtype))
+            for causal in (False, True):
+                tops.reset_launches()
+                got = tops.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                assert tops.launches()["flash_attention"] == 1
+                want = tref.flash_attention(q, k, v, causal=causal)
+                _close(got, want, dtype)
+                _close_to_scale(got, want, dtype)
 
     def test_decode_kernel_ignores_padding_content_bf16_split(self, cuda):
         q, kc, vc = (t.to(cuda) for t in _inputs(
@@ -508,6 +538,32 @@ class TestEngineOnCard:
             with pytest.raises(RuntimeError):
                 eng.generate(prompts)
         assert ("fused", 2, 8) not in eng.graphs and eng.graph_replays == 0
+
+
+@pytest.mark.cuda
+def test_full_width_seamless_launches(cuda):
+    """Full-width seamless-m4t-large-v2 (bf16, 1.632 G params): a prefill
+    over (2, 4096) frames and a 128-token prompt launches the flash kernel
+    72 times (24 encoder, 24 causal, 24 cross), a decode step the decode
+    kernel 48 times (24 self, 24 cross); the logits are finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    model = Model(get_config("seamless-m4t-large-v2"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init(gen)
+    frames = torch.randn((2, 4096, 1024), generator=gen, device=cuda)
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 128), generator=gen, device=cuda)
+    cache = model.init_cache(2, 144, device=cuda)
+    tops.reset_launches()
+    logits, cache = model.prefill(params, {"frames": frames, "tokens": tokens}, cache)
+    torch.cuda.synchronize()
+    assert tops.launches() == {"flash_attention": 72, "decode_attention": 0,
+                               "mlstm_attention": 0, "ssd_scan": 0}
+    logits, cache = model.decode_step(params, logits.argmax(-1), cache)
+    torch.cuda.synchronize()
+    assert tops.launches()["decode_attention"] == 48
+    assert logits.shape == (2, 1, model.cfg.vocab_size) and bool(torch.isfinite(logits).all())
 
 
 def _tree_to(tree, device):

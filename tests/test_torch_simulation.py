@@ -11,7 +11,11 @@
 * The port's driver serves reduced qwen2 on the CPU behind its
   ``EngineBackedLatency`` (the mirror of ``tests/test_e2e.py``'s
   engine-in-the-loop test), restores a snapshot, and keys its rate and
-  SLO on the median of its samples.
+  SLO on the median of its samples. In the two runs that serve through
+  the engine, the simulation's service times come from warm calls taken
+  before the run and held fixed (``EngineBackedLatency(fixed=True)``,
+  ``launch/serve.py --fixed-latency``), so a host loaded by other tests moves
+  none of their decisions.
 """
 import importlib
 import json
@@ -157,16 +161,42 @@ def test_engine_backed_latency_matches_jax_over_a_stub_engine():
     assert runs[1].summary["avg_batch_size"] > 1.0
 
 
+def test_fixed_latency_keeps_the_fastest_warm_call_of_each_bucket():
+    class Slowed(StubEngine):  # every third call 20x slower (a loaded host)
+        def generate(self, prompts, gen_len=None):
+            tokens, timing = super().generate(prompts, gen_len)
+            if self.calls % 3 == 0:
+                timing = dict(timing, latency_s=20 * timing["latency_s"])
+            return tokens, timing
+
+    lat = TEngineBackedLatency(Slowed(), prompt_len=16, gen_len=4, fixed=True)
+    warm = lat.warm_timings(calls=5)
+    assert warm == {(b, 16): 0.03 + 0.004 * b for b in (1, 2, 4, 8, 16, 32)}
+    assert lat.engine.calls == 30
+    lat.seed(warm)
+    rng = np.random.default_rng(0)
+    for size in (1, 3, 3, 3, 9, 32):  # each batch runs; none moves the estimate
+        assert lat.sample(size, rng) == lat.mean(size)
+    assert lat.sample(40, rng) == lat.mean(32) + lat.mean(8)  # two chunks
+    assert lat.mean(3) == 0.03 + 0.004 * 4
+    assert lat.engine.calls == 30 + 8
+
+
 # ------------------------------------------------- the port's driver, CPU
 def test_engine_in_the_loop_serving_on_the_cpu():
     """MLProxy driving the port's engine on the CPU (hybrid sim): batches
-    grow. The mirror of ``tests/test_e2e.py::test_engine_in_the_loop_serving``."""
+    grow. The mirror of ``tests/test_e2e.py::test_engine_in_the_loop_serving``,
+    with the service times of warm calls taken before the run, held fixed
+    (``EngineBackedLatency(fixed=True)``): a loaded host moves no decision."""
     sim_mod, core = _m("repro_torch", "simulation.simulator"), _m("repro_torch", "core")
     cfg = get_config("qwen2-0.5b").reduced()
     ecfg = EngineConfig(batch_buckets=(1, 2, 4, 8), prompt_buckets=(16,), max_len=24,
                         gen_len=2)
     eng = InferenceEngine(cfg, ecfg, seed=0, device="cpu")
-    lat = TEngineBackedLatency(eng, prompt_len=8, gen_len=2)
+    eng.warmup(plen=16)
+    lat = TEngineBackedLatency(eng, prompt_len=8, gen_len=2, fixed=True)
+    lat.seed(lat.warm_timings())
+    batches0 = eng.stats["batches"]
     res = sim_mod.run_simulation(
         policy="mlproxy", sla=core.SLAConfig(slo_target=2.0), workload=lat,
         arrivals=_m("repro_torch", "simulation.arrivals").PoissonProcess(rate=20.0,
@@ -182,13 +212,16 @@ def test_engine_in_the_loop_serving_on_the_cpu():
     # real wall-clock engine latencies vary run to run; the claim under
     # test is that batches FORM (>1), not a specific operating point
     assert s["avg_batch_size"] > 1.2
-    assert eng.stats["batches"] > 0
+    assert eng.stats["batches"] > batches0  # the run's batches ran on the engine
 
 
 def test_driver_snapshot_restores_the_first_runs_max_bs(tmp_path, monkeypatch, capsys):
+    # --fixed-latency: launch/serve.py's service times are warm calls taken
+    # before each run, so the host's load during the two runs moves no AIMD
+    # decision
     snap = tmp_path / "proxy_state.json"
     argv = ["serve", "--reduced", "--device", "cpu", "--gen-len", "2", "--duration", "8",
-            "--rate", "40", "--slo-ms", "2000", "--snapshot", str(snap)]
+            "--rate", "40", "--slo-ms", "2000", "--snapshot", str(snap), "--fixed-latency"]
     monkeypatch.setattr("sys.argv", argv)
     serve.main()
     first = json.loads(snap.read_text())["optimizer"]["max_bs"]
