@@ -109,6 +109,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    (dispatch now, timeout, Max_BS) equal to the same ticks on the CPU,
    tick for tick; the card's µs a tick.
 
+10. Training (``Model.loss``, ``launch/train.py``, ``optim/adamw.py``),
+   which runs the kernels' plain versions, as the JAX package trains on
+   its plain path (the kernels have no backward): each wrapper, given a
+   CUDA input that requires grad, raises, under ``no_grad`` launches once,
+   and inside ``ops.plain_versions()`` returns the plain result with a
+   gradient and counts no launch; every registered arch reduced (f32, TF32
+   off): ``Model.loss`` and every gradient leaf on the card with
+   ``remat=True`` against the same port on the CPU without, to 1e-4 of each
+   leaf's max |g|; then full-width qwen2-0.5b in bf16 (random weights from
+   seed 0, ``remat=True``), batches of 8 x 512 from the port's
+   ``TokenDataset``: every gradient leaf on the step-1 params and batch
+   against the CPU's f32 (relative L2 error, ``TRAIN_GRAD_L2_TOL``); 10
+   steps of ``make_train_step`` (warmup 2): ms a step (CUDA events, median
+   of the last 8), tokens/s, achieved TFLOP/s against the 989 TFLOP/s bf16
+   peak, peak memory, a profile of one step by kernel, the loss at step 1
+   and step 10 (every loss finite, step 10 below step 1, step 1 within
+   ``TRAIN_LOSS_TOL`` of the CPU's f32 loss and its grad norm within
+   ``TRAIN_NORM_TOL`` of the CPU's); a checkpoint saved on the card after
+   step 5 and restored into fresh tensors equals the saved params and
+   AdamW state bit for bit and gives step 6 the uninterrupted run's loss
+   to 1e-3; no kernel launch in the training.
+
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -118,6 +140,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -197,6 +220,27 @@ ENCDEC_BF16_TOL = 0.1
 #: ticks, upstream and end-to-end observations a tick
 FLEET_N, FLEET_BUCKETS, FLEET_WINDOW, FLEET_TICKS, FLEET_AIMD_EVERY = 10_000, 8, 64, 300, 10
 FLEET_UPSTREAM, FLEET_E2E = 2_000, 1_000
+#: phase 10: the trained arch at full width, its batch and sequence, the
+#: steps, the schedule's warmup, the steps timed (the last ones), the step
+#: after which a checkpoint is saved and restored
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_TIMED = (
+    "qwen2-0.5b", 8, 512, 10, 2, 8)
+TRAIN_CKPT_AFTER = 5
+#: reduced archs, card against CPU: each gradient leaf to this share of its
+#: largest |g| (the loss to 1e-5 of itself)
+TRAIN_GRAD_TOL = 1e-4
+#: full width: the card's bf16 step-1 loss against the CPU's f32 loss on the
+#: same params and batch (both ~ln V = 11.93; 3.5e-4 measured)
+TRAIN_LOSS_TOL = 2e-3
+#: full width, the same params and batch: each gradient leaf of the card's
+#: bf16 loss against the CPU's f32, ||g_card - g_cpu|| / ||g_cpu|| (5.4e-2
+#: measured at worst, the tied embedding; 7.5e-3 the median leaf), and the
+#: step-1 grad norm against the CPU's (1.0e-2 measured); a dropped or
+#: mis-scaled gradient is off by about 1
+TRAIN_GRAD_L2_TOL = 0.1
+TRAIN_NORM_TOL = 0.02
+#: the step after a restored checkpoint against the uninterrupted run's
+TRAIN_RESTORE_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -2158,6 +2202,350 @@ def phase_fleet(torch) -> None:
         f"CPU; phase {time.monotonic() - t0:.1f} s")
 
 
+def check_training_refuses_kernels(torch, names=None) -> None:
+    """Each wrapper (or those in ``names``), given small f32 CUDA inputs
+    that require grad, raises with grad mode on rather than return a result
+    detached from autograd; under ``no_grad`` it launches its kernel once;
+    inside ``plain_versions()`` it returns exactly its plain version's
+    result, with a gradient, and counts no launch. The card tests call this
+    too (``tests/test_torch_kernels_cuda.py``)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    F = torch.nn.functional
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").requires_grad_(True)
+
+    conv = torch.randn((2, 24, 4 * 16 + 2 * 16), generator=gen, device="cuda")
+    ssd = (conv[..., :64].reshape(2, 24, 4, 16), F.softplus(torch.randn(
+        (2, 24, 4), generator=gen, device="cuda")), -torch.linspace(1.0, 16.0, 4, device="cuda"),
+        conv[..., 64:80], conv[..., 80:])  # x, B and C views of one conv output
+    inputs = {
+        "flash_attention": ((t(2, 24, 4, 16), t(2, 24, 2, 16), t(2, 24, 2, 16)), {}),
+        "decode_attention": ((t(2, 1, 4, 16), t(2, 24, 2, 16), t(2, 24, 2, 16), 20), {}),
+        "mlstm_attention": ((t(2, 24, 4, 32), t(2, 24, 4, 32), t(2, 24, 4, 32),  # least D
+                             (0.5 * torch.randn((2, 24, 4), generator=gen, device="cuda"))
+                             .requires_grad_(True),
+                             F.logsigmoid(torch.randn((2, 24, 4), generator=gen, device="cuda")
+                                          + 2.0).requires_grad_(True)), {}),
+        "ssd_scan": (tuple(u.detach().clone().requires_grad_(True) for u in ssd),
+                     {"chunk": 8}),
+    }
+    for name in names or ops.WRAPPERS:
+        args, kw = inputs[name]
+        wrapper, plain = ops.WRAPPERS[name], getattr(ref, name)
+        try:
+            wrapper(*args, **kw)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name}: a requires-grad CUDA input did not raise")
+        before = ops.launches()
+        with torch.no_grad():
+            wrapper(*args, **kw)
+        torch.cuda.synchronize()
+        if ops.launches()[name] != before[name] + 1:
+            raise AssertionError(f"{name}: under no_grad the kernel did not launch once")
+        before = ops.launches()
+        with ops.plain_versions():
+            got = wrapper(*args, **kw)
+        if ops.launches() != before:
+            raise AssertionError(f"{name}: plain_versions() launched kernels: {before} -> "
+                                 f"{ops.launches()}")
+        if got.grad_fn is None:
+            raise AssertionError(f"{name}: the plain version inside plain_versions() "
+                                 "lost its gradient")
+        if not torch.equal(got, plain(*args, **kw)):
+            raise AssertionError(f"{name}: inside plain_versions() the result is not the "
+                                 "plain version's")
+        got.square().sum().backward()
+        if args[0].grad is None or not bool(torch.isfinite(args[0].grad).all()):
+            raise AssertionError(f"{name}: no finite gradient through the plain version")
+    log(f"[train] each of the {len(names or ops.WRAPPERS)} wrappers raises on a requires-grad "
+        "CUDA input, launches its kernel once under no_grad and, inside plain_versions(), "
+        "returns its plain version's result with a gradient and no launch")
+
+
+def train_reduced(torch, arch: str) -> None:
+    """``Model.loss`` and every gradient leaf of reduced ``arch`` (f32) on
+    the card with ``remat=True`` (each layer under ``torch.utils.checkpoint``,
+    recomputed on autograd's thread) against the same port on the CPU
+    without it. The card tests call this too."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, make_inputs
+    from repro_torch.utils.tree import flatten_with_path, leaves, unflatten
+
+    cfg = get_config(arch).reduced()
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    batch = make_inputs(cfg, ShapeCell("train", 24, 2, "train"),
+                        torch.Generator().manual_seed(1))["batch"]
+    out = {}
+    before = ops.launches()
+    for dev, remat in (("cpu", False), ("cuda", True)):
+        flat = [p.to(dev).requires_grad_(True) for p in leaves(params)]
+        loss = Model(dataclasses.replace(cfg, remat=remat)).loss(
+            unflatten(params, flat), {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        out[dev] = loss.item(), [torch.zeros_like(p) if g is None else g
+                                 for p, g in zip(flat, grads)]
+    if ops.launches() != before:
+        raise AssertionError(f"{cfg.name}: training launched kernels: {before} -> "
+                             f"{ops.launches()}")
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    if not abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu):
+        raise AssertionError(f"{cfg.name}: card loss {l_gpu} != CPU loss {l_cpu}")
+    worst, worst_name = 0.0, ""
+    for (path, _), a, b in zip(flatten_with_path(params), g_gpu, g_cpu):
+        scale = float(b.abs().max())
+        err = float((a.cpu() - b).abs().max())
+        rel = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+        if rel > worst:
+            worst, worst_name = rel, "__".join(path)
+    if worst > TRAIN_GRAD_TOL:
+        raise AssertionError(f"{cfg.name}: gradient {worst_name} off by {worst:.3e} of its "
+                             f"max |g| on the card (tolerance {TRAIN_GRAD_TOL})")
+    log(f"[train] {cfg.name} f32 loss {l_gpu:.6f} (CPU {l_cpu:.6f}); {len(g_gpu)} gradient "
+        f"leaves, card with remat vs CPU without, worst {worst:.3e} of a leaf's max |g| "
+        f"({worst_name or '-'}; tolerance {TRAIN_GRAD_TOL})")
+
+
+def full_width_grads(torch, model, cpu_model, params, batch_np):
+    """Every gradient leaf of the card's bf16 loss (``remat=True``) against
+    the CPU's f32 loss without remat, on the same params and batch: each
+    leaf's relative L2 error ``||g_card - g_cpu|| / ||g_cpu||``, and the
+    CPU's global gradient norm (for step 1's ``grad_norm``), the card's and
+    the CPU's loss. A gradient the card dropped or mis-scaled is off by
+    about 1."""
+    from repro_torch.launch.train import batch_to
+    from repro_torch.optim import adamw
+    from repro_torch.utils.tree import flatten_with_path, leaves, unflatten
+
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    card_loss = model.loss(unflatten(params, flat), batch_to(batch_np, "cuda"))
+    card = [g.float().cpu() for g in torch.autograd.grad(card_loss, flat)]
+    del flat
+    flat = [p.detach().float().cpu().requires_grad_(True) for p in leaves(params)]
+    host_loss = cpu_model.loss(unflatten(params, flat), batch_to(batch_np, "cpu"))
+    host = torch.autograd.grad(host_loss, flat)
+    errs = {"__".join(path): float((a - b).norm() / b.norm())
+            for (path, _), a, b in zip(flatten_with_path(params), card, host)}
+    return errs, float(adamw.global_norm(list(host))), card_loss.item(), host_loss.item()
+
+
+def train_flops(cfg, b: int, s: int) -> float:
+    """Operations of one train step of a dense decoder with remat: the
+    matmuls' 2 a weight a token forward, 4 backward and 2 more recomputing
+    each layer (not the unembedding, which no checkpoint wraps); attention
+    as the plain version computes it, the full S x S scores and their
+    product with V (4 S D a head a token a layer), forward, backward and
+    recomputed the same way."""
+    d, hd, hq, hkv = cfg.d_model, cfg.hd, cfg.num_heads, cfg.num_kv_heads
+    layer = d * hd * (hq + 2 * hkv) + hq * hd * d + d * cfg.d_ff * 3
+    tokens = b * s
+    attn = 4 * s * hq * hd * cfg.num_layers * tokens
+    return (8 * cfg.num_layers * layer * tokens + 6 * d * cfg.vocab_size * tokens
+            + 4 * attn)
+
+
+def train_step_split(torch, model, cfg, opt_cfg, params, opt, batch) -> dict:
+    """ms of one train step's parts between CUDA events recorded on the
+    stream after each (device time and any gap where the host lags): the
+    loss forward, the backward, the schedule and AdamW (the parts of
+    ``launch/train.py::make_train_step``, run here one by one). The params
+    and state it makes are dropped."""
+    from repro_torch.optim import adamw
+    from repro_torch.utils.tree import leaves, tree_map, unflatten
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    params = tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), params)
+    flat = leaves(params)
+    events[0].record()
+    loss = model.loss(params, batch)
+    events[1].record()
+    grads = torch.autograd.grad(loss, flat)
+    events[2].record()
+    with torch.no_grad():
+        lr = adamw.cosine_schedule(opt.step, warmup=TRAIN_WARMUP, total=TRAIN_STEPS)
+        adamw.apply_updates(opt_cfg, tree_map(torch.Tensor.detach, params),
+                            unflatten(params, list(grads)), opt, lr_scale=lr)
+    events[3].record()
+    events[3].synchronize()
+    return {name: events[i].elapsed_time(events[i + 1])
+            for i, name in enumerate(("forward", "backward", "adamw"))}
+
+
+def phase_train(torch) -> None:
+    """Training: the wrappers' refusal, reduced archs card vs CPU, then
+    full-width qwen2-0.5b train steps, a checkpoint round trip and the
+    loss against the CPU's f32 loss."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenDataset
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import batch_to, make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.utils.tree import leaves
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_training_refuses_kernels(torch)
+    launches0 = ops.launches()
+    for arch in MODEL_ARCHS:
+        train_reduced(torch, arch)
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat=True)
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    opt_cfg = adamw.AdamWConfig()
+    opt = adamw.init_state(opt_cfg, params)
+    data = TokenDataset(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                   vocab_size=cfg.vocab_size, seed=0))
+    step_fn = make_train_step(cfg, opt_cfg, total_steps=TRAIN_STEPS, warmup=TRAIN_WARMUP)
+    # the card's gradients on the step-1 params and batch against the CPU's f32
+    cpu_cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
+                                  remat=False)
+    t0 = time.monotonic()
+    grad_errs, cpu_norm, card_loss, cpu_loss = full_width_grads(
+        torch, model, Model(cpu_cfg), params, next(TokenDataset(data.config)))
+    cpu_s = time.monotonic() - t0
+    worst_leaf = max(grad_errs, key=grad_errs.get)
+    log(f"[train] {cfg.name} full width, step-1 params and batch: {len(grad_errs)} gradient "
+        f"leaves of the card's bf16 loss (remat) against the CPU's f32 (no remat; "
+        f"{cpu_s:.1f} s on the host), relative L2 error worst {grad_errs[worst_leaf]:.3e} "
+        f"({worst_leaf}; tolerance {TRAIN_GRAD_L2_TOL}), median "
+        f"{statistics.median(grad_errs.values()):.3e}; loss {card_loss:.5f} on the card, "
+        f"{cpu_loss:.5f} on the CPU; the CPU's global grad norm {cpu_norm:.4f}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    losses, norms, times, saved = [], [], [], None
+    try:
+        for step in range(1, TRAIN_STEPS + 1):
+            batch = batch_to(next(data), "cuda")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, opt, metrics = step_fn(params, opt, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+            if step == TRAIN_CKPT_AFTER:
+                saved_leaves = [x.cpu() for x in leaves({"params": params, "opt": opt})]
+                t0 = time.monotonic()
+                ckpt.save_checkpoint(ckpt_dir, step, {"params": params, "opt": opt},
+                                     metadata={"data": data.state(), "arch": cfg.name})
+                saved = time.monotonic() - t0
+                ckpt_gb = sum(e.stat().st_size for e in os.scandir(
+                    os.path.join(ckpt_dir, f"step_{step}"))) / 1e9
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # restore step 5 into fresh tensors and take step 6 again
+        t0 = time.monotonic()  # the live trees give only shapes, dtypes and the device
+        step0, tree, meta = ckpt.restore_latest(ckpt_dir, {"params": params, "opt": opt})
+        restored_s = time.monotonic() - t0
+        resumed = TokenDataset(data.config)
+        resumed.restore(meta["data"])
+        restored = leaves(tree)
+        differ = [i for i, (a, b) in enumerate(zip(restored, saved_leaves))
+                  if a.dtype != b.dtype or a.device.type != "cuda" or not torch.equal(a.cpu(), b)]
+        if len(restored) != len(saved_leaves):
+            differ.append("count")
+        _, _, m6 = step_fn(tree["params"], tree["opt"], batch_to(next(resumed), "cuda"))
+        loss6 = m6["loss"].item()
+        del tree, restored, saved_leaves
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if step0 != TRAIN_CKPT_AFTER or differ:
+        raise AssertionError(f"restored step {step0}: leaves {differ} of the params and "
+                             "AdamW state differ from the saved step's")
+    if not abs(loss6 - losses[TRAIN_CKPT_AFTER]) <= TRAIN_RESTORE_TOL:
+        raise AssertionError(f"restored step {step0}: next loss {loss6} against the "
+                             f"uninterrupted {losses[TRAIN_CKPT_AFTER]}")
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"non-finite training loss or grad norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: step 1 {losses[0]}, step "
+                             f"{TRAIN_STEPS} {losses[-1]}")
+    if not abs(losses[0] - cpu_loss) <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"step-1 loss {losses[0]} on the card (bf16) against the CPU's "
+                             f"f32 {cpu_loss}: over {TRAIN_LOSS_TOL}")
+    norm_err = abs(norms[0] - cpu_norm) / cpu_norm
+    if not (grad_errs[worst_leaf] <= TRAIN_GRAD_L2_TOL and norm_err <= TRAIN_NORM_TOL):
+        raise AssertionError(f"full-width gradients: leaf {worst_leaf} off by "
+                             f"{grad_errs[worst_leaf]:.3e} (tolerance {TRAIN_GRAD_L2_TOL}); "
+                             f"step-1 grad norm {norms[0]} against the CPU's {cpu_norm} "
+                             f"({norm_err:.3e}, tolerance {TRAIN_NORM_TOL})")
+
+    split = train_step_split(torch, model, cfg, opt_cfg, params, opt,
+                             batch_to(next(data), "cuda"))
+    # one more step under the profiler: device time by kernel and by op
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = batch_to(next(data), "cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        params, opt, _ = step_fn(params, opt, batch)
+        end.record()
+        torch.cuda.synchronize()
+    profiled_ms = start.elapsed_time(end)
+    profiled = profiled_kernels(torch, prof, {}, "one train step")  # no port kernel in it
+    self_ms = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
+               for e in prof.key_averages() if e.key.startswith("aten::")]
+    by_op = sorted((r for r in self_ms if r[1] > 0), key=lambda r: -r[1])
+    if ops.launches() != launches0:
+        raise AssertionError(f"training launched kernels: {launches0} -> {ops.launches()}")
+
+    ms = statistics.median(times[-TRAIN_TIMED:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tflops = flops / (ms / 1e3) / 1e12
+    log(f"[train] {cfg.name} full width ({cfg.param_count() / 1e9:.3f} G params, bf16, "
+        f"remat), batches {TRAIN_BATCH} x {TRAIN_SEQ} from TokenDataset, AdamW f32 state, "
+        f"warmup {TRAIN_WARMUP} of {TRAIN_STEPS} steps: {ms:.2f} ms a step (median of the "
+        f"last {TRAIN_TIMED}; all: {', '.join(f'{t:.2f}' for t in times)}), "
+        f"{tokens / (ms / 1e3):,.0f} tokens/s, {flops / 1e12:.2f} TFLOP a step, "
+        f"{tflops:.1f} TFLOP/s ({tflops / (PEAK_FLOPS['bfloat16'] / 1e12):.3f} of the "
+        f"989 TFLOP/s bf16 peak), peak memory {peak_gb:.2f} GB")
+    log(f"[train] loss step 1 {losses[0]:.5f} -> step {TRAIN_STEPS} {losses[-1]:.5f} "
+        f"(all: {', '.join(f'{x:.4f}' for x in losses)}); grad norm "
+        f"{', '.join(f'{x:.3f}' for x in norms)}; the CPU's f32 loss on the step-1 params "
+        f"and batch {cpu_loss:.5f}, |diff| {abs(losses[0] - cpu_loss):.2e} (tolerance "
+        f"{TRAIN_LOSS_TOL}); step-1 grad norm against the CPU's {cpu_norm:.4f}: relative "
+        f"{norm_err:.3e} (tolerance {TRAIN_NORM_TOL})")
+    log(f"[train] checkpoint after step {TRAIN_CKPT_AFTER} (params + AdamW state, "
+        f"{ckpt_gb:.2f} GB, saved in {saved:.1f} s, restored into "
+        f"fresh tensors in {restored_s:.1f} s): every leaf, AdamW's step, mu and nu included, "
+        f"bit-equal to the saved step's; step {TRAIN_CKPT_AFTER + 1} loss {loss6:.6f} "
+        f"against the uninterrupted {losses[TRAIN_CKPT_AFTER]:.6f} (tolerance "
+        f"{TRAIN_RESTORE_TOL}); kernel launches in the phase: 0")
+    if profiled is None:
+        log("[profile] one train step: the profiler recorded no device time")
+    else:
+        n_kernels, busy, _, lines = profiled
+        log(f"[profile] one train step: {n_kernels} kernels, device busy {busy:.2f} ms against "
+            f"the same step's {profiled_ms:.2f} ms (CUDA events, under the profiler; idle "
+            f"share {1 - busy / profiled_ms:.3f}); by kernel:\n"
+            + "\n".join(lines))
+        log("[profile] by aten op (self device ms, calls): "
+            + "; ".join(f"{k} {t:.2f} x{n}" for k, t, n in by_op[:14]))
+    log(f"[train] one step split (CUDA events between the parts): loss forward "
+        f"{split['forward']:.2f} ms, backward {split['backward']:.2f} ms, schedule + AdamW "
+        f"{split['adamw']:.2f} ms")
+    log(f"[train] phase {time.monotonic() - t_phase:.1f} s")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2202,6 +2590,7 @@ def main() -> int:
     add_counts(launches, phase_encdec(torch))
     log(f"[encdec] phase {time.monotonic() - t0:.1f} s")
     phase_fleet(torch)
+    phase_train(torch)
     missing = [name for name in rows if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on a serving path: {missing}")

@@ -1,7 +1,7 @@
 """Model configuration for the PyTorch port.
 
 Same fields, defaults, ``hd``, ``reduced()`` and ``param_count()`` as the
-JAX package's ``configs/base.py``; the only difference is that ``dtype``
+JAX package's ``configs/base.py``, and the same :class:`ShapeCell` cells; the only difference is that ``dtype``
 and ``cdtype`` return ``torch.dtype``\\ s. ``use_pallas`` is kept for field
 parity only: on a CUDA device attention always runs through the
 hand-written kernels, and on the CPU through their plain versions.
@@ -9,9 +9,27 @@ hand-written kernels, and on the CPU through their plain versions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)
 
 
 @dataclasses.dataclass(frozen=True)

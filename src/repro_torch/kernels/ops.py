@@ -9,6 +9,14 @@ layer's cache (B, S, Hkv, D), the mLSTM's q/k/v (B, S, H, D) and gates
   fallback), and only then adds one to the wrapper's ``launches`` count;
 * a CPU tensor runs the plain PyTorch version from ``kernels/ref.py``.
 
+None of the kernels has a backward (nor has any TPU kernel it replaces),
+and a tensor a kernel fills through ctypes has no ``grad_fn``. So a
+wrapper given a CUDA tensor that requires grad, while grad mode is on,
+raises rather than return a result cut off from autograd. Training runs
+inside :func:`plain_versions`: there, on this thread, every wrapper runs
+its plain version on any device, keeps autograd and counts no launch, as
+the JAX package trains through its plain attention (``use_pallas=False``).
+
 The counts let a run show that its main path went through the kernels;
 :func:`reset_launches` sets them to 0. They stay exact when several
 threads launch at once (replicas of a pool serving from executor threads):
@@ -38,6 +46,7 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 _count_lock = threading.Lock()
 _capturing = threading.local()  # .launches: this thread's recording, if any
+_plain = threading.local()  # .on: this thread runs the plain versions
 
 
 def count_launch(wrapper) -> None:
@@ -75,6 +84,38 @@ def add_launches(counts) -> None:
             WRAPPERS[name].launches += n
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block, on this thread only, every wrapper runs its plain
+    version from ``kernels/ref.py`` on any device: autograd flows through
+    it and no launch is counted. Other threads (a pool's replicas serving
+    beside a trainer) keep launching the kernels."""
+    before = plain_active()
+    _plain.on = True
+    try:
+        yield
+    finally:
+        _plain.on = before
+
+
+def plain_active() -> bool:
+    """Whether this thread is inside :func:`plain_versions`."""
+    return getattr(_plain, "on", False)
+
+
+def _kernel_route(what: str, *tensors) -> bool:
+    """True where the wrapper launches its kernel: a CUDA tensor outside
+    :func:`plain_versions`. Raises if that kernel would be asked for a
+    gradient it cannot give."""
+    if plain_active() or tensors[0].device.type != "cuda":
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward and would return a result "
+            "detached from autograd; train inside ops.plain_versions()")
+    return True
+
+
 def _no_kernel(t: torch.Tensor, what: str):
     return ValueError(f"{what}: no kernel for device {t.device} "
                       "(CUDA runs the kernel, the CPU its plain version)")
@@ -86,11 +127,11 @@ def flash_attention(q, k, v, *, causal: bool = True):
     Sq and Sk may differ (the encoder-decoder's cross-attention), as in
     the TPU kernel: ``causal`` keeps key position <= query position,
     counted from the first row of each (top-left aligned)."""
-    if q.device.type == "cuda":
+    if _kernel_route("flash_attention", q, k, v):
         out = _fa.flash_attention_fwd(q, k, v, causal=causal)
         count_launch(flash_attention)
         return out
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or plain_active():
         return ref.flash_attention(q, k, v, causal=causal)
     raise _no_kernel(q, "flash_attention")
 
@@ -102,14 +143,14 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     """q: (B, 1, Hq, D); caches: (B, S_max, Hkv, D); cache_len: valid
     entries, an int or an int tensor of 1 or B entries (on the card an
     int32 device tensor, so no host sync) → (B, 1, Hq, D)."""
-    if q.device.type == "cuda":
+    if _kernel_route("decode_attention", q, k_cache, v_cache):
         lengths = torch.as_tensor(cache_len, device=q.device)
         if lengths.dtype != torch.int32:
             lengths = lengths.to(torch.int32)
         out = _dec.decode_attention_fwd(q, k_cache, v_cache, lengths)
         count_launch(decode_attention)
         return out
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or plain_active():
         return ref.decode_attention(q, k_cache, v_cache, cache_len)
     raise _no_kernel(q, "decode_attention")
 
@@ -122,11 +163,11 @@ def mlstm_attention(q, k, v, log_i, log_f, *, chunk: int = 512):
     (input-gate log, log-sigmoid forget) → y (B, S, H, D) in q's dtype.
     ``chunk`` is the plain version's query chunk (it bounds its
     temporaries); the kernel tiles on its own and computes the same y."""
-    if q.device.type == "cuda":
+    if _kernel_route("mlstm_attention", q, k, v, log_i, log_f):
         out = _ml.mlstm_attention_fwd(q, k, v, log_i, log_f)
         count_launch(mlstm_attention)
         return out
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or plain_active():
         return ref.mlstm_attention(q, k, v, log_i, log_f, chunk=chunk)
     raise _no_kernel(q, "mlstm_attention")
 
@@ -140,11 +181,11 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
     heads → y (B, S, H, P) in x's dtype, no final state. The kernel runs
     ``min(chunk, max(S, 8))``-row chunks, the plain version ``chunk``-row
     ones: the same y up to rounding."""
-    if x.device.type == "cuda":
+    if _kernel_route("ssd_scan", x, dt, a, b, c):
         out = _ssd.ssd_scan_fwd(x, dt, a, b, c, chunk=chunk)
         count_launch(ssd_scan)
         return out
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or plain_active():
         return ref.ssd_scan(x, dt, a, b, c, chunk=chunk)
     raise _no_kernel(x, "ssd_scan")
 

@@ -38,12 +38,15 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     init_mlp,
+    layer_views,
     make_norm,
     mlp,
+    remat,
     rope_frequencies,
+    softmax_cross_entropy,
     unembed,
 )
-from repro_torch.models.transformer import _qkv_rope, _rope_for, layer_views
+from repro_torch.models.transformer import _qkv_rope, _rope_for
 
 Params = Dict[str, Any]
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -90,11 +93,23 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tens
     b, s = x.shape[:2]
     cos, sin = rope_frequencies(cfg.hd, s, cfg.rope_theta, device=x.device)
     positions = torch.arange(s, device=x.device).expand(b, s)
-    for p in layer_views(params["enc_layers"], cfg.encoder_layers):
+
+    def attention(x, p):
         q, k, v = _qkv_rope(cfg, p, norm(p["attn_norm"], x), cos, sin, positions)
         out = kernel_ops.flash_attention(q, k, v, causal=False)
-        x = x + out.reshape(b, s, cfg.num_heads * cfg.hd) @ p["attn"]["wo"]
-        x = x + mlp(p["mlp"], norm(p["mlp_norm"], x), cfg.activation)
+        return x + out.reshape(b, s, cfg.num_heads * cfg.hd) @ p["attn"]["wo"]
+
+    def ffn(x, p):
+        return x + mlp(p["mlp"], norm(p["mlp_norm"], x), cfg.activation)
+
+    # Two calls a layer, not one: the caller holds a call's input until it
+    # returns, so one call over the layer would keep its input alive through
+    # the MLP, a (B, S, D) activation more than the prefill needs (0.27 GB
+    # at B = 32 x 4096 frames). Under remat each block is a checkpoint of
+    # its own (JAX checkpoints the layer: one saved input a layer, not two).
+    for p in layer_views(params["enc_layers"], cfg.encoder_layers):
+        x = remat(cfg.remat, attention, x, p)
+        x = remat(cfg.remat, ffn, x, p)
     return norm(params["enc_norm"], x)
 
 
@@ -126,21 +141,25 @@ def _decoder_layer(cfg: ModelConfig, p: Params, x, attn_out, memory, enc_len, no
 
 def _run_decoder(cfg: ModelConfig, params: Params, tokens, memory, rope, cache=None):
     """Prefill (``cache`` given: each layer's K/V written into it) or a
-    full-sequence pass; causal self-attention over the tokens → the last
-    layer's output (B, S, D), before the final norm."""
+    full-sequence pass (each layer recomputed in the backward pass under
+    ``cfg.remat``, as in JAX's train mode); causal self-attention over the
+    tokens → the last layer's output (B, S, D), before the final norm."""
     _, norm = make_norm(cfg.norm)
     x = params["embed"][tokens].to(cfg.cdtype)
     b, s = x.shape[:2]
     cos, sin = rope
     positions = torch.arange(s, device=x.device).expand(b, s)
-    layers = layer_views(params["dec_layers"], cfg.num_layers)
-    for i, p in enumerate(layers):
+
+    def layer(x, p, memory, i):
         q, k, v = _qkv_rope(cfg, p, norm(p["attn_norm"], x), cos, sin, positions)
         out = kernel_ops.flash_attention(q, k, v, causal=True)
         if cache is not None:
             cache["k"][i, :, :s].copy_(k)
             cache["v"][i, :, :s].copy_(v)
-        x = _decoder_layer(cfg, p, x, out, memory, None, norm)
+        return _decoder_layer(cfg, p, x, out, memory, None, norm)
+
+    for i, p in enumerate(layer_views(params["dec_layers"], cfg.num_layers)):
+        x = remat(cfg.remat and cache is None, layer, x, p, memory, i)
     return x
 
 
@@ -155,6 +174,12 @@ def forward(cfg: ModelConfig, params: Params, inputs) -> Tuple[torch.Tensor, tor
     x = _run_decoder(cfg, params, tokens, memory, rope)
     x = norm(params["final_norm"], x)
     return unembed(params["embed"], x, params["lm_head"]), torch.zeros((), device=x.device)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """Next-token loss of ``batch`` ({"frames", "tokens", "labels"}), as in JAX."""
+    logits, _ = forward(cfg, params, batch)
+    return softmax_cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
 
 # ------------------------------------------------------------------ serving

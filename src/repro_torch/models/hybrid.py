@@ -5,8 +5,9 @@ block has its own KV cache ("apps" axis).
 
 The JAX package's layer scan with a ``lax.cond`` on a per-layer flag
 becomes a loop over per-layer views of the same stacked params; the
-shared block runs where the flag is set. ``shard_activation`` and remat,
-which do nothing on one device at inference, are dropped. The shared
+shared block runs where the flag is set. ``shard_activation``, which does
+nothing on one device, is dropped; ``cfg.remat`` recomputes each layer
+body in the backward pass, as ``jax.checkpoint`` does in JAX. The shared
 block's attention goes through ``kernels/ops.py`` (``flash_attention`` at
 prefill, ``decode_attention`` at decode) and each Mamba block's prefill
 scan through ``ops.ssd_scan``: the hand-written kernels on a CUDA device,
@@ -37,11 +38,13 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     init_mlp,
+    layer_views,
     make_norm,
     mlp,
+    remat,
     rope_frequencies,
+    softmax_cross_entropy,
 )
-from repro_torch.models.transformer import layer_views
 
 Params = Dict[str, Any]
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -139,11 +142,21 @@ def forward(cfg: ModelConfig, params: Params, tokens) -> Tuple[torch.Tensor, tor
     cos, sin = rope_frequencies(cfg.hd, s, cfg.rope_theta, device=x.device)
     positions = torch.arange(s, device=x.device).expand(b, s)
     flags, _ = _attn_flags(cfg)
-    for layer, is_attn in zip(layer_views(params["layers"], cfg.num_layers), flags):
+
+    def body(x, layer, shared, is_attn):
         if is_attn:
-            x = _shared_block(cfg, params["shared"], x, cos, sin, positions, "train")
-        x = _mamba(cfg, layer, x)
+            x = _shared_block(cfg, shared, x, cos, sin, positions, "train")
+        return _mamba(cfg, layer, x)
+
+    for layer, is_attn in zip(layer_views(params["layers"], cfg.num_layers), flags):
+        x = remat(cfg.remat, body, x, layer, params["shared"], is_attn)
     return _logits(cfg, params, x), torch.zeros((), device=x.device)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """Next-token loss of ``batch`` ({"tokens", "labels"}), as in JAX."""
+    logits, _ = forward(cfg, params, batch.get("inputs", batch.get("tokens")))
+    return softmax_cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
 
 # ------------------------------------------------------------------ serving

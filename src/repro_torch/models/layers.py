@@ -9,11 +9,13 @@ CPU tests).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Params = Dict[str, Any]
 
@@ -175,9 +177,70 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return out.to(x.dtype)
 
 
+# ------------------------------------------------------------- stacked layers
+def layer_views(layers: Params, num_layers: int) -> List[Params]:
+    """Per-layer views of the stacked layer params (no copies)."""
+    if isinstance(layers, torch.Tensor):
+        return list(torch.unbind(layers, 0))
+    per_key = {k: layer_views(v, num_layers) for k, v in layers.items()}
+    return [{k: per_key[k][i] for k in per_key} for i in range(num_layers)]
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_needs_grad(v) for v in tree)
+    return False
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``; with ``enabled`` (``cfg.remat``), while a gradient is
+    being taken (grad mode on and some tensor of ``args`` requiring grad),
+    its activations are not kept but recomputed in the backward pass, as
+    the JAX package's ``jax.checkpoint(..., policy=nothing_saveable)``
+    around each layer body. Inference never enters the checkpoint. Pass
+    the layer's param views in ``args`` so that their gradients reach the
+    stacked leaves. The recomputation runs the kernels' plain versions if
+    the forward did (it may run on autograd's own thread, outside the
+    caller's ``ops.plain_versions()``)."""
+    if not (enabled and torch.is_grad_enabled() and _needs_grad(args)):
+        return fn(*args)
+    from repro_torch.kernels import ops  # kernels/ref.py imports the models
+
+    recompute = ops.plain_versions if ops.plain_active() else contextlib.nullcontext
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), recompute()))
+
+
 # ----------------------------------------------------------------- embeddings
 def unembed(table: torch.Tensor, x: torch.Tensor,
             head: Optional[torch.Tensor]) -> torch.Tensor:
     """Project to f32 vocab logits; ``head`` is None for tied embeddings."""
     w = head if head is not None else table.T
     return (x @ w.to(x.dtype)).float()
+
+
+# --------------------------------------------------------------------- losses
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token loss. logits: (..., V) f32; labels: (...) int.
+
+    The JAX package takes the gold logit with a one-hot contraction, so that
+    a vocab-sharded logits tensor reduces with a psum. On one device the
+    port gathers it: ``sum(logits * onehot)`` is exactly the gold logit, so
+    the value is the same, and no second (B, S, V) f32 tensor is made, nor
+    its gradient (each 4096 × 151,936 × 4 B = 2.49 GB for qwen2-0.5b at
+    B = 8, S = 512).
+    """
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -2,8 +2,12 @@
 
     model = Model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0))
+    loss   = model.loss(params, batch)
     logits, cache = model.prefill(params, tokens, cache)
     logits, cache = model.decode_step(params, tokens, cache)
+
+plus ``make_inputs(cfg, shape, gen)`` building real (random) inputs for a
+:class:`ShapeCell` from an explicit generator.
 
 Every family of the JAX package is ported: dense, moe and vlm (the decoder
 transformer), ssm (xLSTM), hybrid (Zamba2) and encdec (SeamlessM4T, whose
@@ -15,7 +19,8 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import encdec, hybrid, transformer, xlstm_model
 
 Params = Dict[str, Any]
@@ -53,6 +58,13 @@ class Model:
     def init(self, gen: torch.Generator) -> Params:
         return self._mod.init_params(self.cfg, gen)
 
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The training loss of ``batch``. Attention, the mLSTM and the SSD
+        scan run their plain versions on every device, as the JAX package
+        trains through its plain jnp path: the kernels have no backward."""
+        with kernel_ops.plain_versions():
+            return self._mod.loss_fn(self.cfg, params, batch)
+
     def forward(self, params: Params, inputs) -> torch.Tensor:
         logits, _ = self._mod.forward(self.cfg, params, inputs)
         return logits
@@ -69,3 +81,42 @@ class Model:
 
     def decode_step(self, params: Params, tokens, cache, rope=None):
         return self._mod.decode_step(self.cfg, params, tokens, cache, rope=rope)
+
+
+def make_inputs(cfg: ModelConfig, shape: ShapeCell, gen: torch.Generator) -> Dict[str, Any]:
+    """Random inputs for ``shape`` on ``gen``'s device, as the JAX package's
+    ``make_inputs`` builds them: ``{"batch": ...}`` for a train cell (token
+    ids and labels; float embeddings for ``embed_inputs``; frames and
+    tokens for the encoder-decoder), a prompt and an empty cache for
+    prefill, one token and a cache of ``seq_len - 1`` entries for decode.
+    Caches come from the real ``init_cache``."""
+    b, s = shape.global_batch, shape.seq_len
+    dev = gen.device
+    model = Model(cfg)
+
+    def toks(bb, ss):
+        return torch.randint(0, cfg.vocab_size, (bb, ss), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def frames():
+        return torch.randn((b, cfg.frontend_seq or s, cfg.d_model), generator=gen,
+                           device=dev).to(cfg.cdtype)
+
+    if shape.kind == "train":
+        labels = toks(b, s)
+        if cfg.family == "encdec":
+            return {"batch": {"frames": frames(), "tokens": toks(b, s), "labels": labels}}
+        if cfg.embed_inputs:
+            inputs = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+            return {"batch": {"inputs": inputs.to(cfg.cdtype), "labels": labels}}
+        return {"batch": {"tokens": toks(b, s), "labels": labels}}
+    if shape.kind == "prefill":
+        cache = model.init_cache(b, s, device=dev)
+        if cfg.family == "encdec":
+            return {"inputs": {"frames": frames(), "tokens": toks(b, s)}, "cache": cache}
+        return {"inputs": toks(b, s), "cache": cache}
+    if shape.kind == "decode":
+        cache = model.init_cache(b, s, device=dev)
+        cache["len"].fill_(s - 1)
+        return {"tokens": toks(b, 1), "cache": cache}
+    raise ValueError(shape.kind)

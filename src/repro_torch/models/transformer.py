@@ -8,8 +8,9 @@ their plain versions on the CPU. A MoE layer's FFN is ``models/moe.py``
 (plus the shared expert's MLP when ``moe_shared_ffn`` is set); the VLM
 family is the same decoder, fed token ids or float embeddings.
 
-Three entry points:
+Entry points:
   * ``forward``       — logits over a full (B, S) sequence.
+  * ``loss_fn``       — the next-token loss over a batch (training).
   * ``prefill``       — run the prompt, write K/V into the cache in place,
                         return last-position logits + cache.
   * ``decode_step``   — one token against the KV cache, in place.
@@ -21,7 +22,7 @@ positions and are attended with no pad mask.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -34,9 +35,12 @@ from repro_torch.models.layers import (
     embed_init,
     init_mlp,
     apply_rope,
+    layer_views,
     make_norm,
     mlp,
+    remat,
     rope_frequencies,
+    softmax_cross_entropy,
     unembed,
 )
 
@@ -83,14 +87,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, cfg.dtype,
                                        scale=1.0 / math.sqrt(cfg.d_model))
     return params
-
-
-def layer_views(layers: Params, num_layers: int) -> List[Params]:
-    """Per-layer views of the stacked layer params (no copies)."""
-    if isinstance(layers, torch.Tensor):
-        return list(torch.unbind(layers, 0))
-    per_key = {k: layer_views(v, num_layers) for k, v in layers.items()}
-    return [{k: per_key[k][i] for k in per_key} for i in range(num_layers)]
 
 
 # ------------------------------------------------------------------ forward
@@ -143,14 +139,28 @@ def forward(cfg: ModelConfig, params: Params, tokens_or_embeds,
     cos, sin = rope_frequencies(cfg.hd, s, cfg.rope_theta, device=x.device)
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), device=x.device)
-    for p in layer_views(params["layers"], cfg.num_layers):
+
+    def layer(x, p):
         q, k, v = _qkv_rope(cfg, p, norm(p["attn_norm"], x), cos, sin, positions)
-        x, layer_aux = _finish_layer(cfg, p, x, kernel_ops.flash_attention(q, k, v, causal=True),
-                                     norm, return_aux=True)
+        return _finish_layer(cfg, p, x, kernel_ops.flash_attention(q, k, v, causal=True),
+                             norm, return_aux=True)
+
+    for p in layer_views(params["layers"], cfg.num_layers):
+        x, layer_aux = remat(cfg.remat, layer, x, p)
         if layer_aux is not None:
             aux = aux + layer_aux
     x = norm(params["final_norm"], x)
     return _unembed(params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token loss of ``batch`` ({"tokens" or "inputs", "labels"}) plus
+    ``aux_weight`` times the MoE load-balance loss, as in JAX."""
+    inputs = batch.get("inputs", batch.get("tokens"))
+    logits, aux = forward(cfg, params, inputs)
+    loss = softmax_cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    return loss + aux_weight * aux
 
 
 # ------------------------------------------------------------------ serving

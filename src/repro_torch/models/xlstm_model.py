@@ -4,8 +4,9 @@ followed by one sLSTM block.
 The JAX package's two-level ``lax.scan`` (over super-blocks, then over the
 mLSTM stack) becomes two plain loops over per-block views of the same
 stacked params: ``m_blocks`` leaves are ``(n_super, n_m, ...)``,
-``s_blocks`` leaves ``(n_super, ...)``. ``shard_activation`` and remat,
-which do nothing on one device at inference, are dropped.
+``s_blocks`` leaves ``(n_super, ...)``. ``shard_activation``, which does
+nothing on one device, is dropped; ``cfg.remat`` recomputes each
+super-block in the backward pass, as ``jax.checkpoint`` does in JAX.
 
 The cache is recurrent state, not a KV cache: ``prefill`` reads it (the
 mLSTM conv prefix, the sLSTM carry), so a reused cache must first be put
@@ -21,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import xlstm as xl
-from repro_torch.models.layers import dense_init, embed_init, make_norm
+from repro_torch.models.layers import (dense_init, embed_init, make_norm, remat,
+                                        softmax_cross_entropy)
 
 Params = Dict[str, Any]
 
@@ -98,17 +100,22 @@ def _run(cfg: ModelConfig, params: Params, tokens, cache: Optional[Dict[str, Any
     _, norm = make_norm(cfg.norm)
     n_super, n_m = block_counts(cfg)
     x = params["embed"][tokens].to(cfg.cdtype)
-    for si in range(n_super):
+
+    def super_block(x, si, m_params, s_params):
         for mi in range(n_m):
-            mp = _index(params["m_blocks"], si, mi)
+            mp = _index(m_params, mi)
             mst = _index(cache["m"], si, mi) if cache is not None else None
             h, _ = xl.mlstm_block(mp["mlstm"], norm(mp["norm"], x), cfg.num_heads,
                                   state=mst, chunk=cfg.attn_q_chunk)
             x = x + h
-        sp = _index(params["s_blocks"], si)
         sst = _index(cache["s"], si) if cache is not None else None
-        h, _ = xl.slstm_block(sp["slstm"], norm(sp["norm"], x), cfg.num_heads, state=sst)
-        x = x + h
+        h, _ = xl.slstm_block(s_params["slstm"], norm(s_params["norm"], x), cfg.num_heads,
+                              state=sst)
+        return x + h
+
+    for si in range(n_super):
+        x = remat(cfg.remat and cache is None, super_block, x, si,
+                  _index(params["m_blocks"], si), _index(params["s_blocks"], si))
     if last_only:  # per-position norm and projection: the last row alone
         x = x[:, -1:]
     x = norm(params["final_norm"], x)
@@ -119,6 +126,12 @@ def forward(cfg: ModelConfig, params: Params, tokens) -> Tuple[torch.Tensor, tor
     """Full-sequence forward → (logits (B, S, V) f32, aux loss 0)."""
     logits = _run(cfg, params, tokens, None)
     return logits, torch.zeros((), device=logits.device)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """Next-token loss of ``batch`` ({"tokens", "labels"}), as in JAX."""
+    logits, _ = forward(cfg, params, batch.get("inputs", batch.get("tokens")))
+    return softmax_cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens, cache: Dict[str, Any],

@@ -47,6 +47,14 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.optim.adamw", "repro_torch.data.pipeline", "repro_torch.data.tokenizer",
+    "repro_torch.distributed.checkpoint", "repro_torch.distributed.compression",
+    "repro_torch.launch.train", "repro_torch.utils.tree"])
+def test_the_training_slice_is_scanned(module):
+    assert module in _modules()
+
+
 def test_importing_every_port_module_loads_neither():
     code = (
         "import importlib, sys\n"

@@ -570,3 +570,37 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo root, whose training checks these
+    tests run (one copy of each check)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(tops.WRAPPERS))
+def test_wrappers_refuse_grad_and_train_on_plain_versions(cuda, name):
+    """A kernel has no backward: given a CUDA input that requires grad, with
+    grad mode on, the wrapper raises instead of returning a detached result;
+    under no_grad it launches the kernel; inside ``plain_versions()`` it
+    returns the plain result with a gradient and counts no launch."""
+    _chip_smoke().check_training_refuses_kernels(torch, [name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "xlstm-1.3b", "zamba2-1.2b"])
+def test_reduced_loss_grads_on_the_card_match_the_cpu(cuda, arch):
+    """``Model.loss`` and every gradient leaf of a reduced arch (f32, TF32
+    off) on the card with ``remat=True`` against the same port on the CPU
+    without, to 1e-4 of each leaf's max |g|; no kernel is launched
+    (training runs the plain versions)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _chip_smoke().train_reduced(torch, arch)
