@@ -131,11 +131,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    AdamW state bit for bit and gives step 6 the uninterrupted run's loss
    to 1e-3; no kernel launch in the training.
 
+11. Placement (``launch/mesh.py``, ``distributed/{sharding,elastic}.py``,
+   ``models/moe.py``'s expert-parallel plans, ``launch/dryrun.py``), last,
+   inside a ``try/finally`` that destroys the process group: an NCCL group
+   of one rank and a (1, 1) ("data", "model") mesh on the card; full-width
+   qwen2-0.5b's bf16 params saved and ``restore_elastic``-ed onto the mesh,
+   every ``full_tensor()`` bit-equal to the saved leaf, and a bucket-32,
+   16-token ``generate()`` from the restored blocks with exactly the
+   original params' tokens and exact launches (added to the ``kernels``
+   line); kimi-k2's MoE layer at full width (D 7168, 384 experts of 2048,
+   top-8, bf16, seed 0; 33.8 GB) at B = 32 x 128 tokens (the
+   weight-gather plan, as the world-1 mesh runs it; on 2 x 8 ranks the
+   napkin rule would route tokens up to T = 73,727) and B = 32 x 1
+   (token-route): ``moe_ffn`` under the
+   world-1 mesh against the global path at capacity 1.25, and
+   ``_local_dispatch_compute`` for 8 model ranks x 2 data ranks summed as
+   the all-reduce sums them, against the global path at 8.0 (nothing
+   drops) and against the same ranks on the CPU in f32 at 1.25 (bf16 gate
+   2e-2; rows whose router logits tie within 1e-4 are left out, and
+   counted), the global layer and one rank timed with CUDA events; then
+   ``python -m repro_torch.launch.dryrun --arch kimi-k2-1t-a32b --shape
+   decode_32k --no-save`` in a subprocess (the fake backend at 256 ranks),
+   its roofline row and host seconds printed.
+
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -2546,6 +2570,302 @@ def phase_train(torch) -> None:
     log(f"[train] phase {time.monotonic() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------- placement
+#: kimi-k2's MoE layer in phase 11: (B, S) → the plan its 8 model x 2 data ranks
+#: emulate. The napkin rule picks token-route for both on such a mesh (the
+#: tokens' bytes stay below a rank's 4.2 GB of experts up to T = 73,727); the
+#: weight-gather plan is what ``moe_ffn`` runs on the world-1 mesh (no DP axis)
+PLACEMENT_MOE_CELLS = ((32, 128, "weight-gather"), (32, 1, "token-route"))
+PLACEMENT_MODEL_RANKS = 8
+PLACEMENT_DATA_RANKS = 2
+#: router logit margin (k-th minus (k+1)-th) under which two f32 GEMMs of
+#: other shapes or devices may pick different experts (a tie, ~5e-6 of
+#: rounding apart, not a fault)
+ROUTING_TIE = 1e-4
+
+
+def tie_rows(torch, cfg, x_rows, router, cap=None) -> "torch.Tensor":
+    """Rows of ``x_rows`` (one dispatch's tokens) that a routing tie can
+    change, as a bool mask on the host: each row whose k-th and (k+1)-th
+    router logits lie within :data:`ROUTING_TIE`, and, under a capacity
+    ``cap``, the rows holding the slots around the capacity edge of every
+    expert such a row may join or leave (a tie moves the later tokens of
+    that expert by one slot). A comparison leaves them out; at most 1% of
+    the rows may be."""
+    k = cfg.num_experts_per_tok
+    top = torch.topk((x_rows.float() @ router.float()).cpu(), k + 1, dim=-1)
+    tie = (top.values[:, k - 1] - top.values[:, k]) < ROUTING_TIE
+    out = tie.clone()
+    if cap is not None and bool(tie.any()):
+        chosen = top.indices[:, :k]
+        for e, n in collections.Counter(top.indices[tie].flatten().tolist()).items():
+            rows = (chosen == e).any(dim=-1).nonzero().flatten()  # token order = slot order
+            out[rows[max(cap - n, 0):cap + n]] = True
+    if int(out.sum()) > len(out) // 100:
+        raise AssertionError(f"{int(out.sum())} of {len(out)} rows near a routing tie")
+    return out
+
+
+def rank_sums(torch, moe, cfg, jobs, p, device) -> list:
+    """For each job (xf (T, D), plan, capacity): ``_local_dispatch_compute``
+    for each of the model ranks (their experts) and the data ranks (the
+    weight-gather plan's token columns; the token-route plan's F-shards),
+    on ``device`` in the weights' dtype there (f32 on the CPU), the ranks'
+    partials summed in f32 as the all-reduce sums them. Each rank's
+    experts are moved and cast once for all the jobs."""
+    e_loc = cfg.num_experts // PLACEMENT_MODEL_RANKS
+    f_loc = cfg.expert_d_ff // PLACEMENT_DATA_RANKS
+    dt = p["wi"].dtype if device.type == "cuda" else torch.float32
+    ys = [torch.zeros((xf.shape[0], cfg.d_model), dtype=torch.float32, device=device)
+          for xf, _, _ in jobs]
+    router = p["router"].to(device)
+    for m in range(PLACEMENT_MODEL_RANKS):
+        wi = p["wi"][m * e_loc:(m + 1) * e_loc].to(device=device, dtype=dt)
+        wo = p["wo"][m * e_loc:(m + 1) * e_loc].to(device=device, dtype=dt)
+        for (xf, plan, cap), y in zip(jobs, ys):
+            t = xf.shape[0]
+            for c in range(PLACEMENT_DATA_RANKS):
+                if plan == "weight-gather":
+                    rows = slice(c * t // PLACEMENT_DATA_RANKS,
+                                 (c + 1) * t // PLACEMENT_DATA_RANKS)
+                    x_in, wi_c, wo_c = xf[rows], wi, wo
+                else:
+                    rows, x_in = slice(0, t), xf
+                    wi_c = wi[..., c * f_loc:(c + 1) * f_loc]
+                    wo_c = wo[:, c * f_loc:(c + 1) * f_loc]
+                part, _ = moe._local_dispatch_compute(
+                    x_in.to(device=device, dtype=dt), router, wi_c, wo_c, e_loc=e_loc,
+                    e_lo=m * e_loc, top_k=cfg.num_experts_per_tok, cap=cap,
+                    activation=cfg.activation, return_aux=False)
+                y[rows] += part.float()
+        del wi, wo
+    return ys
+
+
+def placement_moe(torch, card: str, cfg=None, dev: str = "cuda") -> None:
+    """Phase 11 (c): kimi-k2's full-width MoE layer (or ``cfg``'s), global
+    path against the world-1 expert-parallel path and the per-rank plans,
+    on ``dev`` (the CPU only to rehearse the phase's logic)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.constraint import ambient_mesh
+    from repro_torch.models import moe
+
+    cfg = cfg or get_config("kimi-k2-1t-a32b")
+    dev = torch.device(dev)
+    dn = "bfloat16"
+    t0 = time.monotonic()
+    gen = torch.Generator(dev).manual_seed(0)
+    p = moe.init_moe(gen, cfg.d_model, cfg.num_experts, cfg.expert_d_ff, cfg.activation,
+                     cfg.dtype)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in p.values())
+    log(f"[placement] kimi-k2 MoE layer: D={cfg.d_model}, E={cfg.num_experts}, "
+        f"F={cfg.expert_d_ff}, top-{cfg.num_experts_per_tok}, {cfg.activation} gated, "
+        f"{n_bytes / 1e9:.2f} GB of weights from seed 0 in {time.monotonic() - t0:.1f} s")
+    p_cpu = {k: v.cpu() for k, v in p.items()}  # bf16 on the host: the f32 reference's source
+    mesh = ambient_mesh()
+    cells = []
+    for b, s, plan in PLACEMENT_MOE_CELLS:
+        t = b * s
+        n_wio = p["wi"].numel() + p["wo"].numel()
+        # the plan moe_ffn runs on the world-1 mesh (no DP axis: weight-gather),
+        # and the plan the napkin rule picks on the emulated (2 data, 8 model) one
+        world1 = moe.choose_plan(t, n_wio, 2, cfg.d_model, 1, 1)
+        rule = moe.choose_plan(t, n_wio, 2, cfg.d_model, PLACEMENT_MODEL_RANKS,
+                               PLACEMENT_DATA_RANKS)
+        if world1 != "weight-gather":
+            raise AssertionError(f"T={t}: the world-1 mesh picks {world1}")
+        x = torch.randn((b, s, cfg.d_model), generator=torch.Generator(dev).manual_seed(t),
+                        device=dev).to(cfg.dtype)
+        xf = x.reshape(t, cfg.d_model)
+        kw = dict(top_k=cfg.num_experts_per_tok, activation=cfg.activation, return_aux=True)
+        # (1) the world-1 NCCL path against the global path, at the config's capacity
+        y_glob, aux_glob = moe._moe_global(p, x, capacity_factor=cfg.capacity_factor, **kw)
+        y_mesh, aux_mesh = moe.moe_ffn(p, x, capacity_factor=cfg.capacity_factor, **kw)
+        if mesh is None:
+            raise AssertionError("no ambient mesh in phase 11")
+        glob_cap = moe.expert_capacity(t, cfg.num_experts, cfg.num_experts_per_tok,
+                                       cfg.capacity_factor)
+        ties_mesh = tie_rows(torch, cfg, xf, p["router"], glob_cap).to(dev)
+        err_mesh = check_close(torch, y_mesh.reshape(t, -1)[~ties_mesh],
+                               y_glob.reshape(t, -1)[~ties_mesh], TOL[dn],
+                               f"T={t} world-1 mesh vs global")
+        err_aux = check_close(torch, aux_mesh, aux_glob, TOL["float32"], f"T={t} aux loss")
+        # (2) the per-rank plans summed, against the global path where nothing drops
+        cols = PLACEMENT_DATA_RANKS if plan == "weight-gather" else 1
+        cap8 = moe.expert_capacity(t // cols, cfg.num_experts, cfg.num_experts_per_tok, 8.0)
+        y_free, _ = moe._moe_global(p, x, capacity_factor=8.0, **kw)
+        y_ranks8 = rank_sums(torch, moe, cfg, [(xf, plan, cap8)], p, dev)[0].to(cfg.dtype)
+        col = t // cols
+        ties = torch.cat([tie_rows(torch, cfg, xf[c * col:(c + 1) * col], p["router"])
+                          for c in range(cols)])
+        keep = ~ties.to(dev)
+        err_free = check_close(torch, y_ranks8.reshape(t, -1)[keep],
+                               y_free.reshape(t, -1)[keep], TOL[dn],
+                               f"T={t} {plan} ranks at capacity 8.0 vs global")
+        # (3) the per-rank plans at the config's capacity on the card; the CPU's
+        # f32 ranks for every cell follow in one pass over the experts
+        cap = moe.expert_capacity(t // cols, cfg.num_experts, cfg.num_experts_per_tok,
+                                  cfg.capacity_factor)
+        y_card = rank_sums(torch, moe, cfg, [(xf, plan, cap)], p, dev)[0].to(cfg.dtype)
+        ties_cpu = torch.cat([tie_rows(torch, cfg, xf[c * col:(c + 1) * col], p["router"], cap)
+                              for c in range(cols)])
+        dropped = float((y_free.float() - y_glob.float()).abs().max())
+        # (4) times: the global layer against one rank's local compute
+        e_loc = cfg.num_experts // PLACEMENT_MODEL_RANKS
+        x0 = xf[: t // cols]
+        wi0, wo0 = p["wi"][:e_loc], p["wo"][:e_loc]
+        if plan == "token-route":
+            wi0 = wi0[..., : cfg.expert_d_ff // PLACEMENT_DATA_RANKS].contiguous()
+            wo0 = wo0[:, : cfg.expert_d_ff // PLACEMENT_DATA_RANKS].contiguous()
+        glob_ms = device_ms(torch, lambda: moe._moe_global(
+            p, x, capacity_factor=cfg.capacity_factor, **kw), samples=10)
+        rank_ms = device_ms(torch, lambda: moe._local_dispatch_compute(
+            x0, p["router"], wi0, wo0, e_loc=e_loc, e_lo=0, top_k=cfg.num_experts_per_tok,
+            cap=cap, activation=cfg.activation, return_aux=False), samples=10)
+        cells.append({"what": f"B={b} S={s} (T={t}, {plan} emulated; the napkin rule picks "
+                              f"{rule} on (2, 8), {world1} on the world-1 mesh)",
+                      "job": (xf.cpu(), plan, cap), "y_card": y_card.cpu(),
+                      "keep": ~ties_cpu, "line": (
+            f"world-1 mesh vs global {err_mesh:.3e} (aux {err_aux:.3e}, "
+            f"{int(ties_mesh.sum())} tied rows left out); {PLACEMENT_MODEL_RANKS} model x "
+            f"{PLACEMENT_DATA_RANKS} data ranks summed vs global at capacity 8.0 "
+            f"{err_free:.3e} ({int(ties.sum())} tied rows left out); drops at "
+            f"{cfg.capacity_factor} move the global output by {dropped:.3e}; global layer "
+            f"{glob_ms:.3f} ms, one rank's local compute {rank_ms:.3f} ms ({card})")})
+        del x, xf, y_glob, y_mesh, y_free, y_ranks8, y_card, wi0, wo0
+    t_cpu = time.monotonic()
+    y_cpus = rank_sums(torch, moe, cfg, [c["job"] for c in cells], p_cpu, torch.device("cpu"))
+    cpu_s = time.monotonic() - t_cpu
+    for c, y_cpu in zip(cells, y_cpus):
+        keep = c["keep"]
+        err_cpu = check_close(torch, c["y_card"][keep], y_cpu[keep], TOL[dn],
+                              f"{c['what']}: ranks at {cfg.capacity_factor}, card vs CPU f32")
+        log(f"[placement] kimi-k2 MoE {c['what']}: {c['line']}; at capacity "
+            f"{cfg.capacity_factor} the card's ranks vs the CPU's in f32 {err_cpu:.3e} "
+            f"({int((~keep).sum())} rows near a tie left out)")
+    log(f"[placement] the CPU's f32 ranks, both cells: {cpu_s:.1f} s on the host of {card}")
+    del p, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def placement_restore(torch, mesh, card: str, cfg=None) -> dict:
+    """Phase 11 (b): full-width qwen2-0.5b (or ``cfg``) saved, restored onto
+    the mesh and served from the restored blocks, on the mesh's device.
+    Returns the kernel launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.checkpoint import save_checkpoint
+    from repro_torch.distributed.elastic import restore_elastic
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    from repro_torch.utils.tree import flatten_with_path, tree_map
+
+    cfg = cfg or get_config("qwen2-0.5b")
+    ecfg = EngineConfig(batch_buckets=(32,), prompt_buckets=(128,), max_len=144, gen_len=16)
+    engine = InferenceEngine(cfg, ecfg, seed=0, device=mesh.device_type)
+    directory = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        t0 = time.monotonic()
+        save_checkpoint(directory, 0, engine.params)
+        save_s = time.monotonic() - t0
+        like = tree_map(torch.empty_like, engine.params)
+        t0 = time.monotonic()
+        step, restored, _ = restore_elastic(directory, like, mesh, cfg)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    saved = dict(flatten_with_path(engine.params))
+    for path, leaf in flatten_with_path(restored):
+        full = leaf.full_tensor()
+        if full.dtype != saved[path].dtype or not torch.equal(full, saved[path]):
+            raise AssertionError(f"restored leaf {'/'.join(path)} differs from the saved one")
+    local = tree_map(lambda d: d.to_local(), restored)
+    served = InferenceEngine(cfg, ecfg, params=local, device=mesh.device_type)
+    engine.warmup()
+    served.warmup()
+    prompts = np.random.default_rng(11).integers(0, cfg.vocab_size, (32, 128)).astype(np.int32)
+    want, _ = engine.generate(prompts)
+    (got, timing), counts, _, prefills, steps = counted_run(
+        torch, [served], lambda: served.generate(prompts))
+    if not np.array_equal(got, want):
+        raise AssertionError("tokens from the restored params differ from the original's")
+    log(f"[placement] qwen2-0.5b: {len(saved)} leaves saved in {save_s:.1f} s, restored onto "
+        f"the {tuple(mesh.shape)} mesh (step {step}) in {restore_s:.1f} s, every full_tensor() "
+        f"bit-equal; bucket-32 generate() from the restored blocks "
+        f"{1e3 * timing['latency_s']:.2f} ms, {prefills} prefill + {steps} decode steps, "
+        f"launches {counts}, tokens == the original params' ({card})")
+    del engine, served, restored, local, like
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def placement_dryrun(card: str) -> None:
+    """Phase 11 (d): the dry-run entry point on this installation, in a
+    subprocess (the fake backend at 256 ranks)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "kimi-k2-1t-a32b",
+         "--shape", "decode_32k", "--no-save"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    wall = time.monotonic() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"dry-run failed: {out.stderr[-2000:]}")
+    rows = [line for line in out.stdout.splitlines()
+            if line.startswith("kimi-k2-1t-a32b") or "host seconds" in line
+            or "memory_analysis" in line or "collectives:" in line]
+    if not any(line.startswith("kimi-k2-1t-a32b") and " ok " in line for line in rows):
+        raise AssertionError(f"no roofline row in the dry-run's output: {out.stdout[-2000:]}")
+    log("[placement] dry-run kimi-k2-1t-a32b x decode_32k x (16, 16) on this host "
+        f"(host-only figures, H100 SXM constants; {wall:.1f} s with the interpreter's start; "
+        f"this machine: {card}):\n  " + "\n  ".join(rows))
+
+
+def phase_placement(torch) -> dict:
+    """Phase 11: an NCCL process group of one rank and a (1, 1) mesh; an
+    elastic restore of full-width qwen2-0.5b served from the restored
+    blocks; kimi-k2's MoE layer through the expert-parallel plans; the
+    dry-run entry point. The process group is destroyed whatever happens.
+    Returns the kernel launch counts of (b)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.constraint import use_mesh
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.monotonic()
+    card = card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_pg_", dir=ROOT)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        if mesh.device_type != "cuda" or dist.get_backend() != "nccl":
+            raise AssertionError(f"mesh on {mesh.device_type} over {dist.get_backend()}")
+        log(f"[placement] NCCL process group of 1 rank, mesh {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names} on {mesh.device_type}")
+        counts = placement_restore(torch, mesh, card)
+        with use_mesh(mesh):
+            placement_moe(torch, card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    placement_dryrun(card)
+    log(f"[placement] phase {time.monotonic() - t_phase:.1f} s ({card})")
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2591,6 +2911,7 @@ def main() -> int:
     log(f"[encdec] phase {time.monotonic() - t0:.1f} s")
     phase_fleet(torch)
     phase_train(torch)
+    add_counts(launches, phase_placement(torch))
     missing = [name for name in rows if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on a serving path: {missing}")

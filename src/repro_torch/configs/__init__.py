@@ -3,7 +3,7 @@
 Every architecture of the JAX package is registered; an unknown id raises
 ``KeyError``.
 """
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import ModelConfig, ShapeCell, SHAPES, SHAPES_BY_NAME  # noqa: F401
 
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as _llama4
 from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as _kimi

@@ -1,7 +1,9 @@
 """Model configuration for the PyTorch port.
 
-Same fields, defaults, ``hd``, ``reduced()`` and ``param_count()`` as the
-JAX package's ``configs/base.py``, and the same :class:`ShapeCell` cells; the only difference is that ``dtype``
+Same fields, defaults, ``hd``, ``reduced()``, ``param_count()``,
+``active_param_count()``, ``supports_shape()`` and ``skip_reason()`` as the
+JAX package's ``configs/base.py``, and the same :class:`ShapeCell` cells
+(``SHAPES``, ``SHAPES_BY_NAME``); the only difference is that ``dtype``
 and ``cdtype`` return ``torch.dtype``\\ s. ``use_pallas`` is kept for field
 parity only: on a CUDA device attention always runs through the
 hand-written kernels, and on the CPU through their plain versions.
@@ -30,6 +32,8 @@ SHAPES: Tuple[ShapeCell, ...] = (
     ShapeCell("decode_32k", 32768, 128, "decode"),
     ShapeCell("long_500k", 524288, 1, "decode"),
 )
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +94,17 @@ class ModelConfig:
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
+    def supports_shape(self, shape: ShapeCell) -> bool:
+        """long_500k needs a sub-quadratic mixer (DESIGN.md §shape-skips)."""
+        if shape.name == "long_500k":
+            return self.family in ("hybrid", "ssm")
+        return True
+
+    def skip_reason(self, shape: ShapeCell) -> Optional[str]:
+        if self.supports_shape(shape):
+            return None
+        return "full-attention@500k"
+
     def param_count(self) -> int:
         """Approximate parameter count (embedding + layers), for roofline."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
@@ -124,6 +139,20 @@ class ModelConfig:
         else:
             raise ValueError(self.family)
         embed = v * d * (1 if self.tie_embeddings else 2)
+        return int(layers + embed)
+
+    def active_param_count(self) -> int:
+        """Activated params per token (== param_count for dense)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        gated = 3 if self.activation == "silu" else 2
+        hd, hq, hkv = self.hd, self.num_heads, self.num_kv_heads
+        attn = d * hd * (hq + 2 * hkv) + hq * hd * d
+        routed_active = self.num_experts_per_tok * d * self.expert_d_ff * gated
+        shared = d * self.d_ff * gated if self.moe_shared_ffn else 0
+        layers = self.num_layers * (attn + routed_active + shared + d * self.num_experts)
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return int(layers + embed)
 
     def reduced(self) -> "ModelConfig":

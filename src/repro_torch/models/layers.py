@@ -38,6 +38,8 @@ def normal_init(gen: torch.Generator, shape: Sequence[int], scale: float,
     :data:`DRAW_ELEMENTS` elements is one draw.
     """
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    if out.is_meta:  # ``Model.init_abstract``: shapes and dtypes only
+        return out
     rows = out.view(-1, out.shape[-1])
     step = max(1, DRAW_ELEMENTS // rows.shape[1])
     for r0 in range(0, rows.shape[0], step):

@@ -7,7 +7,10 @@
     logits, cache = model.decode_step(params, tokens, cache)
 
 plus ``make_inputs(cfg, shape, gen)`` building real (random) inputs for a
-:class:`ShapeCell` from an explicit generator.
+:class:`ShapeCell` from an explicit generator, and ``input_specs(cfg,
+shape)`` building the same inputs as meta tensors for the dry-run (shapes
+and dtypes, no allocation), where the JAX package builds
+``ShapeDtypeStruct`` stand-ins.
 
 Every family of the JAX package is ported: dense, moe and vlm (the decoder
 transformer), ssm (xLSTM), hybrid (Zamba2) and encdec (SeamlessM4T, whose
@@ -58,6 +61,11 @@ class Model:
     def init(self, gen: torch.Generator) -> Params:
         return self._mod.init_params(self.cfg, gen)
 
+    def init_abstract(self) -> Params:
+        """The tree of :meth:`init` on the meta device: the same leaf paths,
+        shapes and dtypes, no allocation and no random draw."""
+        return self._mod.init_params(self.cfg, _MetaGenerator())
+
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The training loss of ``batch``. Attention, the mLSTM and the SSD
         scan run their plain versions on every device, as the JAX package
@@ -81,6 +89,56 @@ class Model:
 
     def decode_step(self, params: Params, tokens, cache, rope=None):
         return self._mod.decode_step(self.cfg, params, tokens, cache, rope=rope)
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is the meta device: every ``init_*``
+    places its tensors on ``gen.device``, and a draw on the meta device
+    makes an empty tensor of the right shape and dtype."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def _token_spec(b: int, s: int) -> torch.Tensor:
+    return torch.empty((b, s), dtype=torch.int32, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCell) -> Dict[str, Any]:
+    """Meta tensors for every input of the shape's step function, as the
+    JAX package's ``input_specs`` builds ``ShapeDtypeStruct`` stand-ins:
+
+    * ``train``:   the loss inputs (tokens or embeddings, and labels; the
+      encoder-decoder's frames and tokens);
+    * ``prefill``: a prompt of ``seq_len`` tokens and an empty cache;
+    * ``decode``:  one new token and a cache of ``seq_len``.
+
+    Caches come from ``init_cache(device="meta")``."""
+    b, s = shape.global_batch, shape.seq_len
+    model = Model(cfg)
+
+    def frames():
+        return torch.empty((b, cfg.frontend_seq or s, cfg.d_model), dtype=cfg.cdtype,
+                           device="meta")
+
+    if shape.kind == "train":
+        if cfg.family == "encdec":
+            return {"batch": {"frames": frames(), "tokens": _token_spec(b, s),
+                              "labels": _token_spec(b, s)}}
+        if cfg.embed_inputs:
+            inputs = torch.empty((b, s, cfg.d_model), dtype=cfg.cdtype, device="meta")
+            return {"batch": {"inputs": inputs, "labels": _token_spec(b, s)}}
+        return {"batch": {"tokens": _token_spec(b, s), "labels": _token_spec(b, s)}}
+    if shape.kind == "prefill":
+        cache = model.init_cache(b, s, device="meta")
+        if cfg.family == "encdec":
+            return {"inputs": {"frames": frames(), "tokens": _token_spec(b, s)},
+                    "cache": cache}
+        return {"inputs": _token_spec(b, s), "cache": cache}
+    if shape.kind == "decode":
+        return {"tokens": _token_spec(b, 1), "cache": model.init_cache(b, s, device="meta")}
+    raise ValueError(shape.kind)
 
 
 def make_inputs(cfg: ModelConfig, shape: ShapeCell, gen: torch.Generator) -> Dict[str, Any]:

@@ -55,6 +55,14 @@ def test_the_training_slice_is_scanned(module):
     assert module in _modules()
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.distributed.sharding", "repro_torch.distributed.constraint",
+    "repro_torch.distributed.elastic", "repro_torch.launch.mesh",
+    "repro_torch.launch.dryrun", "repro_torch.roofline.analysis", "repro_torch.models.moe"])
+def test_the_placement_slice_is_scanned(module):
+    assert module in _modules()
+
+
 def test_importing_every_port_module_loads_neither():
     code = (
         "import importlib, sys\n"

@@ -218,7 +218,14 @@ def test_engine_in_the_loop_serving_on_the_cpu():
 def test_driver_snapshot_restores_the_first_runs_max_bs(tmp_path, monkeypatch, capsys):
     # --fixed-latency: launch/serve.py's service times are warm calls taken
     # before each run, so the host's load during the two runs moves no AIMD
-    # decision
+    # decision. Those warm calls are timed on the wall clock too (the fastest
+    # of five, slower beside busy test workers: the p95 then nears the 2 s
+    # SLO and the backlog can outlive the run), so here each bucket's time is
+    # fixed: every batch still runs on the engine, and the two runs'
+    # decisions no longer depend on the host
+    monkeypatch.setattr(TEngineBackedLatency, "warm_timings", lambda self, calls=5: {
+        (b, self.prompt_len): 0.004 + 0.001 * b
+        for b in self.engine.ecfg.batch_buckets})
     snap = tmp_path / "proxy_state.json"
     argv = ["serve", "--reduced", "--device", "cpu", "--gen-len", "2", "--duration", "8",
             "--rate", "40", "--slo-ms", "2000", "--snapshot", str(snap), "--fixed-latency"]
