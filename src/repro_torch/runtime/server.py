@@ -510,9 +510,7 @@ class AsyncProxyServer:
         self._accepting = False
         self.frontend.flush(self.clock.now())
         if timeout is None:
-            while self._batch_tasks:
-                await asyncio.gather(*list(self._batch_tasks),
-                                     return_exceptions=True)
+            await self._await_batches()
         else:
             await self._drain_bounded(timeout)
         self._running = False
@@ -522,19 +520,22 @@ class AsyncProxyServer:
             self._timer_task = None
         self.assert_conserved(require_drained=True)
 
+    async def _await_batches(self) -> None:
+        """Await in-flight batches, gathering only tasks not yet done: a
+        finished task leaves ``_batch_tasks`` only once its callback runs."""
+        while True:
+            running = [t for t in self._batch_tasks if not t.done()]
+            if not running:
+                return
+            await asyncio.gather(*running, return_exceptions=True)
+
     async def _drain_bounded(self, timeout: float) -> None:
         """Await in-flight batches up to ``timeout``, then cancel the rest."""
         # Let freshly created batch tasks take their first step so each
         # one owns its bookkeeping before any cancellation can reach it.
         await asyncio.sleep(0)
         loop = asyncio.get_running_loop()
-
-        async def settle() -> None:
-            while self._batch_tasks:
-                await asyncio.gather(*list(self._batch_tasks),
-                                     return_exceptions=True)
-
-        waiter = loop.create_task(settle())
+        waiter = loop.create_task(self._await_batches())
         timer = loop.create_task(self.clock.sleep(timeout))
         await asyncio.wait({waiter, timer},
                            return_when=asyncio.FIRST_COMPLETED)

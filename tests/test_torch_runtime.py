@@ -2,8 +2,9 @@
 
 * Every runtime and exporter module the port copies equals its JAX
   original once the import statements are pointed at ``repro_torch``; the
-  one allowed difference is the ``wallclock`` lint suppression on the two
-  ``time.monotonic`` lines of ``runtime/clock.py``.
+  allowed differences are the ``wallclock`` lint suppression on the two
+  ``time.monotonic`` lines of ``runtime/clock.py`` and the drain repair in
+  ``runtime/server.py``.
 * Under ``FakeClock``, JAX and port ``run_replay`` runs with the same
   keyword arguments, seed and ``PAPER_WORKLOADS`` latency model give equal
   summaries (NaN-aware, exact) and dispatch logs: MLProxy, a baseline, a
@@ -52,6 +53,32 @@ _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro\.", re.M)
 #: the lint suppression the port's clock carries: the linter's wall-clock
 #: allow-list names the JAX package's clock module, not the port's
 SUPPRESS = "  # reprolint: disable=wallclock"
+#: the drain repair in the port's server, as (JAX text, port text) pairs: on
+#: Python 3.12 the JAX original's two loops spin forever once a finished batch
+#: task waits in ``_batch_tasks`` for its done-callback; the port awaits only
+#: the tasks not yet done, in one coroutine both drain paths call
+AWAIT_BATCHES = '''    async def _await_batches(self) -> None:
+        """Await in-flight batches, gathering only tasks not yet done: a
+        finished task leaves ``_batch_tasks`` only once its callback runs."""
+        while True:
+            running = [t for t in self._batch_tasks if not t.done()]
+            if not running:
+                return
+            await asyncio.gather(*running, return_exceptions=True)
+
+'''
+SPIN = """            while self._batch_tasks:
+                await asyncio.gather(*list(self._batch_tasks),
+                                     return_exceptions=True)
+"""
+DRAIN_REPAIR = (
+    ("        if timeout is None:\n" + SPIN,
+     "        if timeout is None:\n            await self._await_batches()\n"),
+    ("    async def _drain_bounded(", AWAIT_BATCHES + "    async def _drain_bounded("),
+    ("\n        async def settle() -> None:\n" + SPIN
+     + "\n        waiter = loop.create_task(settle())\n",
+     "        waiter = loop.create_task(self._await_batches())\n"),
+)
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -62,6 +89,10 @@ def test_port_module_is_a_verbatim_copy(rel):
         marked = [line for line in got.splitlines() if line.endswith(SUPPRESS)]
         assert len(marked) == 2 and all("time.monotonic()" in line for line in marked)
         got = got.replace(SUPPRESS, "")
+    if rel == "runtime/server.py":
+        for jax_text, port_text in DRAIN_REPAIR:
+            assert want.count(jax_text) == 1, jax_text
+            want = want.replace(jax_text, port_text)
     assert got == want, f"src/repro_torch/{rel} differs from its JAX original beyond imports"
 
 
