@@ -12,12 +12,10 @@ the repair in ``repro_torch.runtime.server``:
   and on ``WallClock``, each reached while a finished batch task still waits
   for its done-callback, return with the drained ledger conserved.
 
-Each test runs under a time limit, so a drain that spins fails the test
-instead of hanging the run.
+Each test runs under this module's ``TIME_LIMIT`` (``tests/conftest.py``),
+so a drain that spins fails the test instead of hanging the run.
 """
 import asyncio
-import contextlib
-import signal
 import time
 
 import numpy as np
@@ -28,47 +26,10 @@ from repro_torch.core.request import Request
 from repro_torch.runtime import (AsyncProxyServer, FakeClock, RuntimeConfig,
                                  SyntheticTarget, TargetError, WallClock, run)
 from repro_torch.serverless.latency import AffineLatency, get_workload
+from time_limits import time_limit
 
 #: seconds each test may run; every test here takes well under one
 TIME_LIMIT = 20.0
-#: seconds between repeats of the limit's raise, should the code catch it
-REPEAT = 5.0
-
-
-@contextlib.contextmanager
-def time_limit(seconds, repeat=REPEAT):
-    """Raise ``pytest.fail`` in the main thread once ``seconds`` have passed.
-
-    A real-time interval timer (``SIGALRM``) fires after ``seconds`` and
-    then every ``repeat`` seconds, so code that catches the raise and spins
-    on (asyncio's task steps catch it) is raised at again. On exit the
-    previous handler and timer are restored. Yields a list that gains one
-    entry each time the timer fires. It cannot interrupt code blocked
-    inside a C call: Python runs signal handlers only between bytecodes.
-    """
-    fired = []
-
-    def expire(signum, frame):
-        fired.append(signum)
-        pytest.fail(f"ran past its time limit of {seconds:g} s")
-
-    previous = signal.signal(signal.SIGALRM, expire)
-    outer = signal.setitimer(signal.ITIMER_REAL, seconds, repeat)
-    try:
-        yield fired
-    finally:
-        signal.setitimer(signal.ITIMER_REAL, *outer)
-        signal.signal(signal.SIGALRM, previous)
-
-
-@pytest.fixture(autouse=True)
-def _time_limited():
-    """Fail each test here at ``TIME_LIMIT``; one whose code caught the raise
-    and then finished fails at teardown."""
-    with time_limit(TIME_LIMIT) as fired:
-        yield
-    if fired:
-        pytest.fail(f"the time limit of {TIME_LIMIT:g} s fired during the test")
 
 
 def _spin(seconds):
