@@ -31,7 +31,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    keys (full and top-left causal, one-row and ragged tiles), the encoder
    (S = 4096, not causal; checked at B = 2, timed at B = 2 and 32), the
    cross-attention (128 rows over 4096 frames, B = 32), and decode over a
-   4096-row cache at B = 2 and 32. Every flash and decode case is also
+   4096-row cache at B = 2 and 32. Zamba2-7B's shapes are checked and
+   timed with their bounds: flash at B = 8, S = 256, 32 q and kv heads of
+   224; decode over a 320-row cache at B = 8 (full and per-row lengths);
+   the SSD scan at B = 8, S = 256, H = 112, P = N = 64 with B and C per
+   group (G = 2), as views of one conv output. Every flash and decode case is also
    held to its error over each output row's rms (``SCALED_TOL``: at 4096
    keys the outputs are ~0.026, below the absolute tolerance), and at
    4096 keys the plain version that skips keys 64-127 must fail that gate.
@@ -83,8 +87,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    circuit breaker), which must conserve every request; then
    ``measure_engine`` on the idle card beside the live run's per-bucket
    latencies. Launch counts as in 5, summed over both replicas.
-7. Wide: yi-34b (8 layers), nemotron-4-340b (2), kimi-k2-1t-a32b (1) and
-   internvl2-76b (4) at full width, one engine each (batch buckets 2 and
+7. Wide: yi-34b (8 layers), nemotron-4-340b (2), kimi-k2-1t-a32b (1),
+   internvl2-76b (4) and zamba2-7b (all 81, the published layout) at
+   full width, one engine each (batch buckets 2 and
    32, prompt 128, 16 tokens): warmup captures the graphs, one
    ``generate()`` a bucket with exact launches, its tokens exactly the
    per-token eager loop's; the peak memory and the two graphs' device
@@ -211,9 +216,11 @@ DIRECT_REQUESTS = {"qwen2-0.5b": 60, "xlstm-1.3b": 30, "zamba2-1.2b": 60,
 #: served at full width with fewer layers than published (the rest whole):
 #: llama4-scout's 48 layers are 211 GB in bf16, 8 of them 39.4 GB
 SERVE_DEPTH = {"llama4-scout-17b-a16e": 8}
-#: phase 7: full width at a cut depth, one engine each (bf16 weights: yi
-#: ~10.8 GB, nemotron ~32.7 GB, kimi ~38.8 GB, internvl2 ~11.0 GB)
-WIDE_DEPTH = {"yi-34b": 8, "nemotron-4-340b": 2, "kimi-k2-1t-a32b": 1, "internvl2-76b": 4}
+#: phase 7: full width at a cut depth (zamba2-7b whole), one engine each
+#: (bf16 weights: yi ~10.8 GB, nemotron ~32.7 GB, kimi ~38.8 GB, internvl2
+#: ~11.0 GB, zamba2-7b ~14.7 GB)
+WIDE_DEPTH = {"yi-34b": 8, "nemotron-4-340b": 2, "kimi-k2-1t-a32b": 1, "internvl2-76b": 4,
+              "zamba2-7b": 81}
 #: the model also served under the passthrough policy (the paper's baseline)
 PASSTHROUGH_ARCH, PASSTHROUGH_ARRIVALS = "qwen2-0.5b", 100
 #: the live runtime's replicas and wall seconds of arrivals (MLProxy, chaos)
@@ -471,6 +478,8 @@ def phase_kernels(torch):
         (2, 200, 14, 2, 64, torch.float32, False),
         (2, 257, 4, 1, 32, torch.float32, True),
         (32, 128, 32, 32, 64, torch.bfloat16, True),  # Zamba2's shared block (G = 1)
+        (8, 256, 32, 32, 224, torch.bfloat16, True),  # Zamba2-7B's, bucket 8
+        (2, 256, 32, 32, 224, torch.float32, True),
     ]
     # kimi-k2's (D = 112, G = 8) and nemotron-4's (D = 192, G = 12) heads at
     # bucket 32 and prompt 128, and in f32
@@ -481,7 +490,7 @@ def phase_kernels(torch):
     # the tensor-core (bf16) kernel's edges: one-row and ragged tiles, every
     # head dim, G = 1, 2 and 7, causal and full
     flash_cases += [(2, s, hq, hkv, d, torch.bfloat16, causal)
-                    for s in (1, 24, 200, 257) for d in (16, 32, 112, 128, 192)
+                    for s in (1, 24, 200, 257) for d in (16, 32, 112, 128, 192, 224)
                     for hq, hkv in ((4, 4), (4, 2), (14, 2)) for causal in (True, False)]
     # Sq query rows over Sk keys, as the TPU kernel takes them: one-row and
     # ragged tiles either way round, full and causal (top-left aligned), f32
@@ -574,6 +583,13 @@ def phase_kernels(torch):
         (4, 640, 4, 4, 32, torch.float32, 501, None),
         (32, s_max, 32, 32, 64, torch.bfloat16, 144, None),  # Zamba2's shared block (G = 1)
     ]
+    # Zamba2-7B's: 32 q and kv heads of 224 over its 320-row cache at bucket
+    # 8, full, per-row and spread lengths, the planned split and a forced
+    # one; bucket 1; and in f32
+    decode_cases += [(8, 320, 32, 32, 224, torch.bfloat16, n, sl)
+                     for n in (320, "per-row", "spread") for sl in (None, 48)]
+    decode_cases += [(1, 320, 32, 32, 224, torch.bfloat16, n, None) for n in (1, 257, 320)]
+    decode_cases += [(8, 320, 32, 32, 224, torch.float32, n, None) for n in (320, "per-row")]
     # the split kernel's edges, bf16, buckets 1 and 32 at qwen2's G = 7 and
     # Zamba2's G = 1, with the planned split and forced ones: lengths 0, 1,
     # a split boundary +- 1, S_max, and per-row lengths that put the rows of
@@ -708,6 +724,31 @@ def phase_kernels(torch):
             f"bound {bound_ms:.5f} ms; kernel/sdpa {ms / lib_ms:.3f}; splits "
             f"{_dec.split_plan(b, h, s_max)}; {split_sweep(torch, _dec, q, kc, vc, lens)}")
 
+    # and at Zamba2-7B's: bucket 8, prompt 256, 32 q and kv heads of 224;
+    # decode over its 320-row cache (256 + 64), every row full
+    b, s, h, d, s_cache = 8, 256, 32, 224, 320
+    q, k, v = (randn((b, s, h, d), torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = device_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True))
+    plain_ms = device_ms(torch, lambda: ref.flash_attention(q, k, v, causal=True), samples=5)
+    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    bound_ms, bound_by = bound(2 * 4 * q.numel(), 4 * b * h * d * s * (s + 1) / 2, "bfloat16")
+    log(f"[kernels] flash_attention timed at Zamba2-7B's shape (B={b} S={s} Hq=Hkv={h} D={d} "
+        f"bf16 causal): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}); kernel/sdpa {ms / lib_ms:.3f}")
+    lens = torch.full((1,), s_cache, dtype=torch.int32, device="cuda")
+    q = randn((b, 1, h, d), torch.bfloat16)
+    kc, vc = (randn((b, s_cache, h, d), torch.bfloat16) for _ in range(2))
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    ms = device_ms(torch, lambda: ops.decode_attention(q, kc, vc, lens))
+    plain_ms = device_ms(torch, lambda: ref.decode_attention(q, kc, vc, lens))
+    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    bound_ms, bound_by = bound(2 * (2 * q.numel() + 2 * kc.numel()) + 4,
+                               4 * b * h * d * s_cache, "bfloat16")
+    log(f"[kernels] decode_attention timed at Zamba2-7B's shape (B={b} S_max={s_cache} "
+        f"len={s_cache} Hq=Hkv={h} D={d} bf16): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+        f"sdpa {lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}); kernel/sdpa "
+        f"{ms / lib_ms:.3f}; splits {_dec.split_plan(b, h, s_cache)}")
     # where splitting pays: one sequence over a long cache, qwen2's heads
     q = randn((1, 1, 14, 64), torch.bfloat16)
     kc, vc = (randn((1, 4096, 2, 64), torch.bfloat16) for _ in range(2))
@@ -827,11 +868,14 @@ def phase_kernels(torch):
         f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
 
     # ---- SSD scan: x, B and C as the model hands them over, views of one
-    # conv output (B, S, H·P + 2N); (B, S, H, P, N, chunk, dtype)
-    def ssd_inputs(b, s, h, p, n, dtype):
-        conv = randn((b, s, h * p + 2 * n), dtype)
+    # conv output (B, S, H·P + 2·G·N); B and C shared (B, S, N) at G = 1,
+    # per group (B, S, G, N) otherwise; (B, S, H, P, N, chunk, dtype[, G])
+    def ssd_inputs(b, s, h, p, n, dtype, groups=1):
+        conv = randn((b, s, h * p + 2 * groups * n), dtype)
         x = conv[..., :h * p].reshape(b, s, h, p)
-        bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+        bm, cm = conv[..., h * p:h * p + groups * n], conv[..., h * p + groups * n:]
+        if groups > 1:
+            bm, cm = bm.unflatten(-1, (groups, n)), cm.unflatten(-1, (groups, n))
         dt = F.softplus(randn((b, s, h), torch.float32))
         a = -torch.linspace(1.0, 16.0, h, device="cuda")  # -exp(a_log) at init
         return x, dt, a, bm, cm
@@ -850,27 +894,42 @@ def phase_kernels(torch):
     # and 128, one row, ragged S in one and in several chunks
     ssd_cases += [(2, s, 3, pn, pn, chunk, torch.bfloat16)
                   for pn in (16, 64, 128) for chunk in (32, 128) for s in (1, 70, 300)]
+    # B and C per group: Zamba2-7B's serving shape (2 groups of 56 heads,
+    # prompt 256 in two 128-row chunks), f32 in 32-row chunks as the f32
+    # case above, and groups of 6 heads, which the plan's 4 or 8 heads a
+    # block do not divide; each also against the kernel run group by group
+    ssd_cases += [(8, 256, 112, 64, 64, 128, torch.bfloat16, 2),
+                  (2, 100, 8, 64, 64, 32, torch.float32, 4),
+                  (66, 128, 12, 64, 64, 128, torch.bfloat16, 2),
+                  (2, 70, 12, 64, 64, 32, torch.bfloat16, 2)]
     # The kernel computes in f32, as the TPU kernel does, and is held to its
     # plain version run on the same values in f32 (rounded to the working
     # dtype once, at the end). Run in bf16, the plain version rounds its
     # (Q x Q) weights to bf16 first, as the JAX model's ssd_chunked does:
     # that error is larger than the kernel's and is reported, not gated.
     max_err = max_err_bf16_plain = 0.0
-    for b, s, h, p, n, chunk, dtype in ssd_cases:
-        args = ssd_inputs(b, s, h, p, n, dtype)
+    for b, s, h, p, n, chunk, dtype, *groups in ssd_cases:
+        groups = groups[0] if groups else 1
+        args = ssd_inputs(b, s, h, p, n, dtype, groups)
         x, dt, a, bm, cm = args
         dn = str(dtype).split(".")[-1]
         got = ops.ssd_scan(*args, chunk=chunk)
         want = ref.ssd_scan(x.float(), dt, a, bm.float(), cm.float(), chunk=chunk).to(dtype)
         err = check_close(torch, got, want, SSD_TOL[dn],
-                          f"ssd_scan {b}x{s}x{h}x{p}x{n} chunk {chunk} {dn}")
+                          f"ssd_scan {b}x{s}x{h}x{p}x{n} G={groups} chunk {chunk} {dn}")
         max_err = max(max_err, err)
         msg = f"max abs err {err:.3e}"
         if dtype != torch.float32 and p >= 16 and n >= 16:  # the tensor-core kernel
             rend = check_close(torch, got, ref.ssd_scan_grouped(*args, chunk=chunk), TOL[dn],
-                               f"ssd_scan {b}x{s}x{h}x{p}x{n} chunk {chunk} {dn} "
+                               f"ssd_scan {b}x{s}x{h}x{p}x{n} G={groups} chunk {chunk} {dn} "
                                "vs its rendering")
             msg += f"; against the grouped hi/lo rendering {rend:.3e}"
+        if groups > 1:  # the grouping alone: each group's heads through the shared-B/C path
+            per = ref.by_group(lambda *t, chunk: ops.ssd_scan(*t, chunk=chunk), *args,
+                               chunk=chunk)
+            same = check_close(torch, got, per, TOL[dn], f"ssd_scan {b}x{s}x{h}x{p}x{n} "
+                               f"G={groups} chunk {chunk} {dn} vs the kernel group by group")
+            msg += f"; against the kernel run group by group {same:.3e}"
         if dtype != torch.float32:
             plain = ref.ssd_scan(*args, chunk=chunk).float()
             diff = (got.float() - plain).abs()
@@ -878,7 +937,30 @@ def phase_kernels(torch):
             max_err_bf16_plain = max(max_err_bf16_plain, float(diff.max()))
             msg += (f"; against the plain version run in {dn}: max abs err "
                     f"{float(diff.max()):.3e}, {over} of {diff.numel()} over the tolerance")
-        log(f"[kernels] ssd_scan B={b} S={s} H={h} P={p} N={n} chunk={chunk} {dn}: {msg}")
+        log(f"[kernels] ssd_scan B={b} S={s} H={h} P={p} N={n} G={groups} chunk={chunk} {dn}: "
+            f"{msg}")
+    # Zamba2-7B's 112 heads in f32 (2 groups, S = 256 in 32-row chunks): held
+    # to the kernel run group by group (the shared-B/C path). Against the
+    # plain version both are reported, not gated: the f32 kernel takes its
+    # decays as exp of differences of f32 running sums (as the TPU kernel),
+    # the plain version as segment sums, and over 3.7 M outputs a few differ
+    # by more than SSD_TOL. Over 128-row chunks the plain version in f32
+    # itself lies up to 2.3e-3 from its f64 run (these decays reach
+    # exp(-1600) across a chunk).
+    args = ssd_inputs(2, 256, 112, 64, 64, torch.float32, 2)
+    got = ops.ssd_scan(*args, chunk=32)
+    per = ref.by_group(lambda *t, chunk: ops.ssd_scan(*t, chunk=chunk), *args, chunk=32)
+    same = check_close(torch, got, per, TOL["float32"], "ssd_scan 2x256x112x64x64 G=2 chunk 32 "
+                       "float32 vs the kernel group by group")
+    want = ref.ssd_scan(*args, chunk=32)
+
+    def off_plain(y):
+        diff = (y - want).abs()
+        over = int((diff > SSD_TOL["float32"] * (1 + want.abs())).sum())
+        return f"max abs err {float(diff.max()):.3e}, {over} of {diff.numel()} over SSD_TOL"
+    log(f"[kernels] ssd_scan B=2 S=256 H=112 P=N=64 G=2 chunk=32 float32: against the kernel "
+        f"run group by group {same:.3e}; against the plain version (reported): grouped "
+        f"{off_plain(got)}, the shared-B/C path group by group {off_plain(per)}")
     # 2, 4 and 8 heads a block, as the plan picks them by batch size, H = 5
     # not a multiple of them: one chunk, and several with the states of the
     # block's heads carried in shared memory
@@ -931,6 +1013,26 @@ def phase_kernels(torch):
         t = device_ms(torch, lambda: ops.ssd_scan(xs, dts, as_, bms, cms, chunk=chunk))
         log(f"[kernels] ssd_scan timed at B={bb} S={ss} H={h} P={p} N={n} bf16: kernel "
             f"{t:.5f} ms, {_ssd.heads_per_block(bb, h, p, n, min(chunk, ss), 1)} heads a block")
+    # Zamba2-7B's: bucket 8, prompt 256 (two chunks), 112 heads in 2 groups
+    # of B and C; C·Bᵀ once per group, the rest per head, as above
+    b, s, h, g = 8, 256, 112, 2
+    x, dt, a, bm, cm = ssd_inputs(b, s, h, p, n, torch.bfloat16, g)
+    ms = device_ms(torch, lambda: ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk))
+    plain_ms = device_ms(torch, lambda: ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk), samples=5)
+    shared_ms = device_ms(torch, lambda: ops.ssd_scan(x, dt, a, bm[:, :, 0], cm[:, :, 0],
+                                                       chunk=chunk))
+    nbytes = 2 * 2 * b * s * h * p + 4 * b * s * h + 2 * 2 * b * s * g * n + 4 * h
+    flops = 0.0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        state = (c0 > 0) + (c0 + chunk < s)
+        flops += g * 2 * q * (q + 1) / 2 * n + h * 2 * (q * (q + 1) / 2 * p + state * q * p * n)
+    flops *= b
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    log(f"[kernels] ssd_scan timed at Zamba2-7B's shape (B={b} S={s} H={h} P={p} N={n} G={g} "
+        f"chunk={chunk} bf16): kernel {ms:.5f} ms (B and C shared: {shared_ms:.5f} ms), plain "
+        f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP)")
     return rows
 
 

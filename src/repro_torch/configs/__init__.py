@@ -1,7 +1,8 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
-Every architecture of the JAX package is registered; an unknown id raises
-``KeyError``.
+Every architecture of the JAX package is registered (``REGISTRY``,
+``ARCH_IDS``); ``PORT_ONLY`` holds the architectures only the port has,
+which ``get_config`` finds after them. An unknown id raises ``KeyError``.
 """
 from repro_torch.configs.base import ModelConfig, ShapeCell, SHAPES, SHAPES_BY_NAME  # noqa: F401
 
@@ -12,6 +13,7 @@ from repro_torch.configs.qwen2_0_5b import CONFIG as _qwen2
 from repro_torch.configs.nemotron_4_340b import CONFIG as _nemotron
 from repro_torch.configs.yi_34b import CONFIG as _yi
 from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2
+from repro_torch.configs.zamba2_7b import CONFIG as _zamba2_7b
 from repro_torch.configs.xlstm_1_3b import CONFIG as _xlstm
 from repro_torch.configs.internvl2_76b import CONFIG as _internvl
 from repro_torch.configs.seamless_m4t_large_v2 import CONFIG as _seamless
@@ -34,9 +36,15 @@ ARCH_IDS = tuple(REGISTRY)
 #: Architectures the JAX package has and the port does not have yet.
 NOT_PORTED = ()
 
+#: Architectures only the port has: Zamba2-7B in its published layout.
+PORT_ONLY = {
+    "zamba2-7b": _zamba2_7b,
+}
+
 
 def get_config(arch: str) -> ModelConfig:
-    try:
-        return REGISTRY[arch]
-    except KeyError:
-        raise KeyError(f"unknown arch {arch!r}; available: {sorted(REGISTRY)}") from None
+    found = REGISTRY.get(arch) or PORT_ONLY.get(arch)
+    if found is None:
+        raise KeyError(f"unknown arch {arch!r}; available: "
+                       f"{sorted(REGISTRY) + sorted(PORT_ONLY)}")
+    return found

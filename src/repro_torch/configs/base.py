@@ -3,8 +3,11 @@
 Same fields, defaults, ``hd``, ``reduced()``, ``param_count()``,
 ``active_param_count()``, ``supports_shape()`` and ``skip_reason()`` as the
 JAX package's ``configs/base.py``, and the same :class:`ShapeCell` cells
-(``SHAPES``, ``SHAPES_BY_NAME``); the only difference is that ``dtype``
-and ``cdtype`` return ``torch.dtype``\\ s. ``use_pallas`` is kept for field
+(``SHAPES``, ``SHAPES_BY_NAME``); ``dtype`` and ``cdtype`` return
+``torch.dtype``\\ s. The port adds the fields of the published Zamba2
+layout (``hybrid_layer_ids`` and the five after it), which the JAX package
+lacks: at their defaults every config is the JAX package's, field for
+field, and ``param_count()`` counts the same. ``use_pallas`` is kept for field
 parity only: on a CUDA device attention always runs through the
 hand-written kernels, and on the CPU through their plain versions.
 """
@@ -65,6 +68,17 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_chunk: int = 128
     attn_every: int = 0  # zamba2: shared attention before every Nth block
+    # --- the published Zamba2 layout (port only) ---
+    #: layers whose Mamba block a shared transformer block feeds (the
+    #: config's ``hybrid_layer_ids``); empty keeps the JAX package's
+    #: layout, one shared block with residuals before every
+    #: ``attn_every``-th layer, and the five fields below at their defaults
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 1  # shared blocks, taken in turn by the applications
+    attention_hidden_size: int = 0  # the shared block's input width (0: d_model)
+    adapter_rank: int = 0  # rank of each application's LoRA on the MLP's gate_up
+    ssm_groups: int = 1  # Mamba-2 groups: B and C per group of heads
+    norm_eps: float = 1e-6  # the hybrid family's RMSNorm eps
     mlstm_per_slstm: int = 7  # xlstm block ratio
     # --- enc-dec ---
     encoder_layers: int = 0
@@ -80,6 +94,10 @@ class ModelConfig:
     # --- serving ---
     attn_q_chunk: int = 512
     use_pallas: bool = False  # field parity; not a switch in the port
+
+    def __post_init__(self):
+        # a JSON list and a tuple name the same layers (and compare equal)
+        object.__setattr__(self, "hybrid_layer_ids", tuple(self.hybrid_layer_ids))
 
     # ------------------------------------------------------------------ api
     @property
@@ -121,9 +139,17 @@ class ModelConfig:
             layers = self.num_layers * (attn + routed + shared + d * self.num_experts)
         elif self.family == "hybrid":
             d_inner = 2 * d
-            mamba = d * (2 * d_inner + 2 * self.ssm_state + d_inner // self.ssm_head_dim)
+            mamba = d * (2 * d_inner + 2 * self.ssm_groups * self.ssm_state
+                         + d_inner // self.ssm_head_dim)
             mamba += d_inner * d
             layers = self.num_layers * mamba + attn  # one shared attn block
+            if self.hybrid_layer_ids:  # the published layout's shared blocks
+                width = self.attention_hidden_size or d
+                block = (width * hd * (hq + 2 * hkv) + hq * hd * d
+                         + d * f * (3 if self.activation in ("silu", "geglu") else 2))
+                per_app = self.adapter_rank * (d + 2 * f) + d * d  # LoRA, linear
+                layers += (self.num_mem_blocks * block - attn
+                           + len(self.hybrid_layer_ids) * per_app)
         elif self.family == "ssm":
             d_inner = 2 * d
             hd_i = d_inner // self.num_heads

@@ -35,11 +35,12 @@
 // Each group of lanes keeps its own running max, sum and accumulator per
 // head; they merge by shuffles inside a warp and through shared memory
 // across warps. The shuffles need a power of two of lanes a row: where the
-// row's 16-byte chunks are not one (bf16 D = 112 and 192: 14 and 24; f32
-// D = 112: 28) a row gets the next power of two of lanes and the lanes
-// past its last chunk load nothing and add zeros (bf16 D = 112 leaves 2 of
-// 16 lanes idle, 192 8 of 32); where a row has more chunks than a warp has
-// lanes (f32 D = 192: 48) a lane takes two chunks, 32 apart.
+// row's 16-byte chunks are not one (bf16 D = 112, 192 and 224: 14, 24 and
+// 28; f32 D = 112: 28) a row gets the next power of two of lanes and the
+// lanes past its last chunk load nothing and add zeros (bf16 D = 112
+// leaves 2 of 16 lanes idle, 192 8 of 32, 224 4 of 32); where a row has
+// more chunks than a warp has lanes (f32 D = 192 and 224: 48 and 56) a
+// lane takes two chunks, 32 apart.
 //
 // Split S (flash-decoding): the launcher sets the split count from
 // (B, Hkv, S_max) alone, never from the length (it lives on the device),
@@ -397,6 +398,7 @@ int dispatch_d(int D, const Args& a) {
     case 112: return dispatch_group<T, 112>(a);
     case 128: return dispatch_group<T, 128>(a);
     case 192: return dispatch_group<T, 192>(a);
+    case 224: return dispatch_group<T, 224>(a);
     default: return -2;
   }
 }

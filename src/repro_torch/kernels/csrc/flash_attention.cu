@@ -46,13 +46,14 @@
 // sum, stages the warp's 16 rows in its own part of the q tile and stores
 // them with 16-byte stores.
 //
-// Head dims 16, 32, 64, 112, 128 and 192 (the TPU kernel takes any, with
-// full-dim blocks; the port's models use 16 in the reduced configs, 64,
-// 112 for kimi-k2, 128, and 192 for nemotron-4-340b). At D = 112 and 192
-// the bf16 tile takes 75 and 125 KB of shared memory, above the 48 KB a
-// launch gets without opting in; at D = 192 the Q fragments are read from
-// the q tile for each kv tile instead of being held in registers, beside
-// O's 96 f32 registers a thread.
+// Head dims 16, 32, 64, 112, 128, 192 and 224 (the TPU kernel takes any,
+// with full-dim blocks; the port's models use 16 in the reduced configs,
+// 64, 112 for kimi-k2, 128, 192 for nemotron-4-340b and 224 for
+// Zamba2-7B's shared blocks). At D = 112, 192 and 224 the bf16 tile takes
+// 75, 125 and 145 KB of shared memory, above the 48 KB a launch gets
+// without opting in; above D = 128 the Q fragments are read from the q
+// tile for each kv tile instead of being held in registers, beside O's 96
+// (D = 192) or 112 (D = 224) f32 registers a thread.
 //
 // Where the bf16 numerics differ from the TPU kernel: the TPU kernel keeps
 // p in f32 for P·V (flash_attention.py:64-67); this kernel rounds p to bf16
@@ -443,7 +444,8 @@ struct Args {
 template <int D>
 int launch_f32(const Args& a) {
   // the f32 kv tile in static shared memory: at most 32 KB (D = 64, 128),
-  // 28 KB at D = 112, 24 KB at D = 192 (16 rows: 32 would fill all 48 KB)
+  // 28 KB at D = 112 and 224, 24 KB at D = 192 (16 rows: 32 would fill all
+  // 48 KB)
   constexpr int BK = D <= 64 ? 64 : (D <= 128 ? 32 : 16);
   dim3 grid((a.Sq + kBlockQ - 1) / kBlockQ, a.B * a.Hq);
   flash_fwd_kernel<float, D, BK><<<grid, kThreads, 0, a.stream>>>(
@@ -509,6 +511,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       case 112: rc = launch_f32<112>(a); break;
       case 128: rc = launch_f32<128>(a); break;
       case 192: rc = launch_f32<192>(a); break;
+      case 224: rc = launch_f32<224>(a); break;
       default: return -2;
     }
   } else if (dtype == 1) {
@@ -519,6 +522,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       case 112: rc = launch_bf16<112>(a, device); break;
       case 128: rc = launch_bf16<128>(a, device); break;
       case 192: rc = launch_bf16<192>(a, device); break;
+      case 224: rc = launch_bf16<224>(a, device); break;
       default: return -2;
     }
   } else {

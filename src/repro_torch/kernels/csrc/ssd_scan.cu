@@ -15,8 +15,10 @@
 // y is stored in x's dtype.
 //
 // Layout: x and y (B, S, H, P), dt (B, S, H) f32, a (H,) f32, B and C
-// (B, S, N) shared by every head of a batch row (ngroups = 1), each through
-// its own element strides (x, B and C need a contiguous last dim). So the
+// (B, S, NG, N) with NG groups of H / NG heads (head h reads group
+// h / (H / NG); NG = 1, a group stride of 0, is B and C shared by every
+// head, as Zamba2-1.2B's; Zamba2-7B has two groups of 56), each through its
+// own element strides (x, B and C need a contiguous last dim). So the
 // model's views of its conv output go in without a transpose, pad or copy
 // per head. The ragged last chunk is handled here: rows past S read dt = 0,
 // x = B = C = 0 (exact: no decay, no injection) and are not stored.
@@ -33,10 +35,11 @@
 //
 // bf16 with P and N in {16, 32, 64, 128} (every serving run): a tensor-core
 // kernel on mma.sync.m16n8k16 (bf16 in, f32 accumulate).
-// * One block per (batch row, group of G heads) walks the chunks; G comes
+// * One block per (batch row, run of G heads) walks the chunks; G comes
 //   from the launcher (ssd_scan.py::heads_per_block): the most of 8, 4, 2
-//   and 1 that still gives every SM a block and whose f32 states fit in
-//   shared memory (each head's (P x N) state, 16 KB at P = N = 64, lives
+//   and 1 that still gives every SM a block, divides the heads of a B/C
+//   group (so a block's heads read one B and one C), and whose f32 states
+//   fit in shared memory (each head's (P x N) state, 16 KB at P = N = 64, lives
 //   there from chunk to chunk, and only when there is more than one
 //   chunk). At the serving shape G = 8: 256 blocks of 102 KB, two an SM,
 //   one wave (the previous design ran 2,048 blocks, ~7.8 waves).
@@ -124,11 +127,11 @@ template <typename T, int P, int N>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ a, const T* __restrict__ bm,
-                const T* __restrict__ cm, T* __restrict__ y, int S, int H, int Q,
+                const T* __restrict__ cm, T* __restrict__ y, int S, int H, int Q, int hpg,
                 int64_t x_sb, int64_t x_ss, int64_t x_sh,
                 int64_t d_sb, int64_t d_ss, int64_t d_sh,
-                int64_t b_sb, int64_t b_ss, int64_t c_sb, int64_t c_ss,
-                int64_t y_sb, int64_t y_ss, int64_t y_sh) {
+                int64_t b_sb, int64_t b_ss, int64_t b_sg, int64_t c_sb, int64_t c_ss,
+                int64_t c_sg, int64_t y_sb, int64_t y_ss, int64_t y_sh) {
   constexpr int NP = N + 1;  // padded row of h, B and C
   extern __shared__ float smem[];
   float* hs = smem;                    // [P][NP]
@@ -150,8 +153,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   const T* xb = x + b * x_sb + h * x_sh;
   const float* db = dt + b * d_sb + h * d_sh;
-  const T* bb = bm + b * b_sb;
-  const T* cb = cm + b * c_sb;
+  const T* bb = bm + b * b_sb + (h / hpg) * b_sg;
+  const T* cb = cm + b * c_sb + (h / hpg) * c_sg;
   T* yb = y + b * y_sb + h * y_sh;
 
   for (int c0 = 0; c0 < S; c0 += Q) {
@@ -380,11 +383,11 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32, P <= 64 ? 2 : 1)
 ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ a, const bf16* __restrict__ bm,
                const bf16* __restrict__ cm, bf16* __restrict__ y, int S, int H, int Q,
-               int G, int nbuf,
+               int G, int nbuf, int hpg,
                int64_t x_sb, int64_t x_ss, int64_t x_sh,
                int64_t d_sb, int64_t d_ss, int64_t d_sh,
-               int64_t b_sb, int64_t b_ss, int64_t c_sb, int64_t c_ss,
-               int64_t y_sb, int64_t y_ss, int64_t y_sh) {
+               int64_t b_sb, int64_t b_ss, int64_t b_sg, int64_t c_sb, int64_t c_ss,
+               int64_t c_sg, int64_t y_sb, int64_t y_ss, int64_t y_sh) {
   constexpr int LDN = N + 8;  // padded bf16 row of B and C
   constexpr int LDP = P + 8;  // padded bf16 row of x and y
   constexpr int LDH = N + 8;  // padded f32 row of a state
@@ -421,8 +424,9 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 
   const bf16* xb = x + b * x_sb + h0 * x_sh;
   const float* db = dt + b * d_sb + h0 * d_sh;
-  const bf16* bb = bm + b * b_sb;
-  const bf16* cb = cm + b * c_sb;
+  // the launcher keeps G a divisor of hpg: every head of the block is in h0's group
+  const bf16* bb = bm + b * b_sb + (h0 / hpg) * b_sg;
+  const bf16* cb = cm + b * c_sb + (h0 / hpg) * c_sg;
   bf16* yb = y + b * y_sb + h0 * y_sh;
 
   // rows [0, QR) of a chunk tile, zeros from row L on
@@ -652,7 +656,7 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 // ----------------------------------------------------------------- launch
 struct Args {
   const void* x; const void* dt; const void* a; const void* bm; const void* cm; void* y;
-  int B, S, H, Q, G;
+  int B, S, H, Q, G, hpg;
   const long long* st;
   int device;
   cudaStream_t stream;
@@ -668,15 +672,15 @@ int launch(const Args& a) {
   ssd_scan_kernel<T, P, N><<<a.B * a.H, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.x), static_cast<const float*>(a.dt),
       static_cast<const float*>(a.a), static_cast<const T*>(a.bm),
-      static_cast<const T*>(a.cm), static_cast<T*>(a.y), a.S, a.H, a.Q,
+      static_cast<const T*>(a.cm), static_cast<T*>(a.y), a.S, a.H, a.Q, a.hpg,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], st[12]);
+      st[10], st[11], st[12], st[13], st[14]);
   return 0;
 }
 
 template <int P, int N>
 int launch_mma(const Args& a) {
-  if (a.G < 1 || a.G > kMaxHeadsPerBlock) return -1;
+  if (a.G < 1 || a.G > kMaxHeadsPerBlock || a.hpg % a.G != 0) return -1;
   const int nwarps = (a.Q + 15) / 16;
   const int QR = nwarps * 16;
   const bool carry = a.S > a.Q;
@@ -698,8 +702,8 @@ int launch_mma(const Args& a) {
       static_cast<const bf16*>(a.x), static_cast<const float*>(a.dt),
       static_cast<const float*>(a.a), static_cast<const bf16*>(a.bm),
       static_cast<const bf16*>(a.cm), static_cast<bf16*>(a.y), a.S, a.H, a.Q, a.G, nbuf,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], st[12]);
+      a.hpg, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], st[12], st[13], st[14]);
   return 0;
 }
 
@@ -763,24 +767,27 @@ int dispatch_bf16(int P, int N, const Args& a) {
 extern "C" {
 
 // Returns 0 on success, a negative code for arguments the kernel does not
-// take (-1 bad sizes, chunk or heads a block, -2 P or N, -3 dtype, -4 too
-// much shared memory for the heads a block), else the cudaError_t of the
-// launch. heads_per_block is read by the bf16 tensor-core kernel only.
-// Strides, in elements: x (batch, seq, head), dt (batch, seq, head), B
-// (batch, seq), C (batch, seq), y (batch, seq, head).
+// take (-1 bad sizes, chunk, groups or heads a block, -2 P or N, -3 dtype,
+// -4 too much shared memory for the heads a block), else the cudaError_t of
+// the launch. heads_per_block is read by the bf16 tensor-core kernel only,
+// and must divide heads_per_group (H / the B/C groups). Strides, in
+// elements: x (batch, seq, head), dt (batch, seq, head), B (batch, seq,
+// group), C (batch, seq, group), y (batch, seq, head).
 int ssd_scan_fwd(const void* x, const void* dt, const void* a, const void* bm,
                  const void* cm, void* y, int dtype, int B, int S, int H, int P, int N,
-                 int chunk, int heads_per_block, long long x_sb, long long x_ss,
-                 long long x_sh, long long d_sb, long long d_ss, long long d_sh,
-                 long long b_sb, long long b_ss, long long c_sb, long long c_ss,
-                 long long y_sb, long long y_ss, long long y_sh, int device, void* stream) {
+                 int chunk, int heads_per_block, int heads_per_group, long long x_sb,
+                 long long x_ss, long long x_sh, long long d_sb, long long d_ss,
+                 long long d_sh, long long b_sb, long long b_ss, long long b_sg,
+                 long long c_sb, long long c_ss, long long c_sg, long long y_sb,
+                 long long y_ss, long long y_sh, int device, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || chunk <= 0 || chunk > kMaxChunk) return -1;
+  if (heads_per_group <= 0 || H % heads_per_group != 0) return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long st[13] = {x_sb, x_ss, x_sh, d_sb, d_ss, d_sh,
-                            b_sb, b_ss, c_sb, c_ss, y_sb, y_ss, y_sh};
-  const Args args{x, dt, a, bm, cm, y, B, S, H, chunk, heads_per_block, st, device,
-                  static_cast<cudaStream_t>(stream)};
+  const long long st[15] = {x_sb, x_ss, x_sh, d_sb, d_ss, d_sh,
+                            b_sb, b_ss, b_sg, c_sb, c_ss, c_sg, y_sb, y_ss, y_sh};
+  const Args args{x, dt, a, bm, cm, y, B, S, H, chunk, heads_per_block, heads_per_group,
+                  st, device, static_cast<cudaStream_t>(stream)};
   int rc;
   if (dtype == 0) {
     rc = dispatch_f32(P, N, args);

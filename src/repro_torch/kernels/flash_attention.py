@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "flash_attention"
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128, 192)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128, 192, 224)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p

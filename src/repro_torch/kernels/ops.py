@@ -2,8 +2,8 @@
 
 Each wrapper takes the model's tensors — q (B, S, Hq, D), k/v or one
 layer's cache (B, S, Hkv, D), the mLSTM's q/k/v (B, S, H, D) and gates
-(B, S, H), the SSD scan's x (B, S, H, P), dt (B, S, H) and shared B/C
-(B, S, N) — and dispatches on where they lie:
+(B, S, H), the SSD scan's x (B, S, H, P), dt (B, S, H) and B/C, shared
+(B, S, N) or per group (B, S, G, N) — and dispatches on where they lie:
 
 * a CUDA tensor launches the hand-written kernel (or raises: there is no
   fallback), and only then adds one to the wrapper's ``launches`` count;
@@ -178,7 +178,8 @@ mlstm_attention.launches = 0
 def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
     """Mamba-2 SSD scan from a zero state. x: (B, S, H, P); dt: (B, S, H)
     f32 (softplus'd); a: (H,) f32 (negative); b, c: (B, S, N) shared across
-    heads → y (B, S, H, P) in x's dtype, no final state. The kernel runs
+    heads, or (B, S, G, N), head h reading group h // (H / G) → y
+    (B, S, H, P) in x's dtype, no final state. The kernel runs
     ``min(chunk, max(S, 8))``-row chunks, the plain version ``chunk``-row
     ones: the same y up to rounding."""
     if _kernel_route("ssd_scan", x, dt, a, b, c):

@@ -110,6 +110,25 @@ def mlstm_attention_sliced(q, k, v, log_i, log_f, *, slice_cols: int):
     return y.to(q.dtype)
 
 
+def by_group(scan, x, dt, a, b, c, **kw):
+    """``scan`` (a function of B and C shared by every head) on each group's
+    heads with that group's B and C, (B, S, G, N), joined along the heads:
+    head h reads group h // (H / G). A state ``h0`` (B, H, P, N) is split
+    the same way; a returned (y, h) is joined as y (dim 2) and h (dim 1)."""
+    groups, h0 = b.shape[2], kw.pop("h0", None)
+    per = x.shape[2] // groups
+    outs = []
+    for g in range(groups):
+        heads = slice(g * per, (g + 1) * per)
+        if h0 is not None:
+            kw["h0"] = h0[:, heads]
+        outs.append(scan(x[:, :, heads], dt[:, :, heads], a[heads], b[:, :, g], c[:, :, g],
+                         **kw))
+    if isinstance(outs[0], tuple):
+        return torch.cat([o[0] for o in outs], dim=2), torch.cat([o[1] for o in outs], dim=1)
+    return torch.cat(outs, dim=2)
+
+
 def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
     """Plain version of ops.ssd_scan (the model's chunked SSD, y only)."""
     from repro_torch.models.ssm import ssd_chunked  # the model imports ops
@@ -128,8 +147,12 @@ def ssd_scan_grouped(x, dt, a, b, c, *, chunk: int = 128):
     hi + lo; the carried state only where it is read: exp(cum_q)·C·hᵀ from
     the second chunk on, with h as hi + lo, and the update
     h·exp(total) + xᵀ(B ∘ exp(total − cum) ∘ dt), its right factor as
-    hi + lo, before every chunk but the last. Returns y in x's dtype.
+    hi + lo, before every chunk but the last. B and C shared (B, S, N), or
+    per group (B, S, G, N): C·Bᵀ then once per group. Returns y in x's
+    dtype.
     """
+    if b.dim() == 4:
+        return by_group(ssd_scan_grouped, x, dt, a, b, c, chunk=chunk)
     bs, s, h, p = x.shape
     n = b.shape[-1]
     q = min(chunk, max(s, 8))

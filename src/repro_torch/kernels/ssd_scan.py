@@ -12,9 +12,10 @@ float32, and bf16 at P or N = 8, keep the exact CUDA-core kernel.
 Like the TPU kernel it takes no initial state and returns no final state,
 and it takes the same chunk, ``min(chunk, max(S, 8))``. Unlike the TPU
 wrapper, nothing is transposed to ``(B·H, S, P)`` or padded: x
-``(B, S, H, P)``, dt ``(B, S, H)`` and the shared B and C ``(B, S, N)`` go
-in through their strides, and the ragged last chunk is masked in the
-kernel. The tensor-core kernel moves 16 bytes a lane, so for it the
+``(B, S, H, P)``, dt ``(B, S, H)`` and B and C, shared ``(B, S, N)`` or per
+group ``(B, S, G, N)`` (head h reads group ``h // (H / G)``), go in through
+their strides, and the ragged last chunk is masked in the kernel. A
+tensor-core block's heads lie in one group. The tensor-core kernel moves 16 bytes a lane, so for it the
 launcher refuses x, B or C whose base pointer or batch, row or head stride
 is not 16-byte aligned (the model's views of its conv output are).
 Model-layout dispatch and the launch count live in ``kernels/ops.py``.
@@ -41,7 +42,7 @@ MAX_SMEM = 232448
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = [_P] * 6 + [_I] * 8 + [_L] * 13 + [_I, _P]
+_ARGTYPES = [_P] * 6 + [_I] * 9 + [_L] * 15 + [_I, _P]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -92,11 +93,12 @@ def _lib() -> ctypes.CDLL:
 def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                  c: torch.Tensor, chunk: int = 128) -> torch.Tensor:
     """x: (B, S, H, P); dt: (B, S, H) float32; a: (H,) float32; b, c:
-    (B, S, N) in x's dtype; all CUDA → y (B, S, H, P) in x's dtype.
+    (B, S, N), shared by every head, or (B, S, G, N), per group of H / G
+    heads, in x's dtype; all CUDA → y (B, S, H, P) in x's dtype.
 
-    A tensor-core block takes :func:`heads_per_block` heads. Launches on
-    the current stream and does not synchronise. Raises on anything the
-    kernel does not take.
+    A tensor-core block takes :func:`heads_per_block` heads, halved until
+    they divide a group's. Launches on the current stream and does not
+    synchronise. Raises on anything the kernel does not take.
     """
     if x.dim() != 4:
         raise ValueError("ssd_scan takes a 4-D (B, S, H, P) x")
@@ -105,10 +107,13 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Te
         raise ValueError(f"dt {tuple(dt.shape)} is not (B, S, H) = {(bsz, s, h)}")
     if a.shape != (h,):
         raise ValueError(f"a {tuple(a.shape)} is not (H,) = {(h,)}")
-    if b.dim() != 3 or b.shape[:2] != (bsz, s) or c.shape != b.shape:
+    if b.dim() not in (3, 4) or b.shape[:2] != (bsz, s) or c.shape != b.shape:
         raise ValueError(f"b {tuple(b.shape)} and c {tuple(c.shape)} are not the "
-                         f"same (B, S, N) with (B, S) = {(bsz, s)}")
-    n = b.shape[2]
+                         f"same (B, S, N) or (B, S, G, N) with (B, S) = {(bsz, s)}")
+    groups = b.shape[2] if b.dim() == 4 else 1
+    if h % groups:
+        raise ValueError(f"{h} heads do not split into {groups} groups")
+    n = b.shape[-1]
     if p not in SUPPORTED_DIMS or n not in SUPPORTED_DIMS:
         raise ValueError(f"head dim {p} / state size {n} not in {SUPPORTED_DIMS}")
     q = min(chunk, max(s, 8))  # the chunk the TPU kernel runs
@@ -124,11 +129,14 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Te
             raise ValueError("the last dim of x, b and c must be contiguous (stride 1)")
     n_chunks = _cdiv(s, q)
     mma = uses_tensor_cores(x.dtype, p, n)
+    bc_dims = (0, 1, 2) if groups > 1 else (0, 1)
     if mma:
         build.check_16b_layout(x, (0, 1, 2), "ssd_scan")
-        build.check_16b_layout(b, (0, 1), "ssd_scan")
-        build.check_16b_layout(c, (0, 1), "ssd_scan")
+        build.check_16b_layout(b, bc_dims, "ssd_scan")
+        build.check_16b_layout(c, bc_dims, "ssd_scan")
         g = heads_per_block(bsz, h, p, n, q, n_chunks)
+        while (h // groups) % g:  # a block's heads read one group's B and C
+            g //= 2
     else:
         g = 1
     for t in (x, dt, a, b, c):
@@ -136,12 +144,14 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Te
             raise ValueError("ssd_scan kernel needs all inputs on one CUDA device")
     a = a.contiguous()
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
+    group_strides = (b.stride(2), c.stride(2)) if groups > 1 else (0, 0)
     lib = _lib()
     rc = lib.ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        y.data_ptr(), DTYPE_CODES[x.dtype], bsz, s, h, p, n, q, g,
-        *x.stride()[:3], *dt.stride(), *b.stride()[:2], *c.stride()[:2],
-        *y.stride()[:3], x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        y.data_ptr(), DTYPE_CODES[x.dtype], bsz, s, h, p, n, q, g, h // groups,
+        *x.stride()[:3], *dt.stride(), *b.stride()[:2], group_strides[0],
+        *c.stride()[:2], group_strides[1], *y.stride()[:3], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         why = (lib.ssd_scan_error_string(rc).decode() if rc > 0
                else "arguments refused")

@@ -100,7 +100,9 @@ def make_norm(kind: str):
 
 
 # ----------------------------------------------------------------- activations
-GATED_ACTIVATIONS = ("silu",)  # gated (GLU) families use fused wi = [gate|up]
+#: gated (GLU) families use fused wi = [gate|up]; ``geglu`` is the erf GELU
+#: gated so (``transformers``' ``ACT2FN["gelu"]``, Zamba2's ``hidden_act``)
+GATED_ACTIVATIONS = ("silu", "geglu")
 
 
 def _relu2(x: torch.Tensor) -> torch.Tensor:
@@ -118,6 +120,8 @@ def activation_fn(name: str):
         return F.silu
     if name == "gelu":
         return _gelu_tanh
+    if name == "geglu":
+        return F.gelu
     if name == "relu":
         return F.relu
     if name == "relu2":

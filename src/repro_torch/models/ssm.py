@@ -12,8 +12,11 @@ Prefill and ``forward`` run the scan through ``kernels/ops.py``
 :func:`ssd_chunked` on the CPU) and fold the prompt into the decode state
 with :func:`_ssd_final_state` beside it, because the kernel, like the TPU
 kernel it replaces, takes no initial state and returns no final one.
-``ssd_chunked`` with an ``h0`` stays as the oracle. ``ngroups=1`` (B and C
-shared across heads), matching the released Mamba-2 configs.
+``ssd_chunked`` with an ``h0`` stays as the oracle. B and C are shared by
+every head, ``(B, S, N)`` (one group, the JAX package's layout), or given
+per group, ``(B, S, G, N)``: head h reads group ``h // (H / G)``, as
+Zamba2-7B's two groups of 56 heads. The one-group path is the JAX
+package's arithmetic, unchanged.
 
 The f32 islands are the JAX package's: dt, the decays, the state and the
 gated RMS norm. Unlike the JAX functions, which return new state,
@@ -28,20 +31,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ref import by_group
 from repro_torch.models.layers import dense_init
 
 
 def init_mamba2(gen: torch.Generator, d_model: int, d_state: int, dtype,
                 expand: int = 2, head_dim: int = 64, conv_width: int = 4,
-                lead: Sequence[int] = ()) -> dict:
+                lead: Sequence[int] = (), groups: int = 1) -> dict:
     d_inner = expand * d_model
     n_heads = d_inner // head_dim
-    conv_dim = d_inner + 2 * d_state  # x, B, C all pass the causal conv
+    conv_dim = d_inner + 2 * groups * d_state  # x, B, C all pass the causal conv
     dev = gen.device
     a_log = torch.log(torch.linspace(1.0, 16.0, n_heads, device=dev))
     return {
-        # fused input projection: [z, x, B, C, dt]
-        "in_proj": dense_init(gen, d_model, 2 * d_inner + 2 * d_state + n_heads, dtype,
+        # fused input projection: [z, x, B, C, dt]; B and C (G, N) each
+        "in_proj": dense_init(gen, d_model, d_inner + conv_dim + n_heads, dtype,
                               lead=lead),
         "conv": (torch.randn((*lead, conv_width, conv_dim), generator=gen, device=dev)
                  * 0.1).to(dtype),
@@ -70,13 +74,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Ten
     """Chunked SSD scan (the plain version behind the kernel).
 
     Shapes: x (B,S,H,P); dt (B,S,H) (already softplus'd, >0); a (H,)
-    (negative); b, c (B,S,N) shared across heads; h0 optional (B,H,P,N).
-    Returns (y (B,S,H,P), h_final (B,H,P,N) f32).
+    (negative); b, c (B,S,N) shared across heads, or (B,S,G,N) per group;
+    h0 optional (B,H,P,N). Returns (y (B,S,H,P), h_final (B,H,P,N) f32).
 
     As in the JAX package, the (Q×Q) weights and the state injection are
     rounded to the model dtype before their products, which accumulate in
     f32 (a bf16 × bf16 product is exact in f32).
     """
+    if b.dim() == 4:
+        return by_group(ssd_chunked, x, dt, a, b, c, chunk=chunk, h0=h0)
     bs, s, h, p = x.shape
     n = b.shape[-1]
     nc = math.ceil(s / chunk)
@@ -134,18 +140,27 @@ def _ssd_final_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     h[b,h,p,n] = Σ_s x[b,s,h,p] · exp(ΣΔ_total − ΣΔ_s) · dt[b,s,h] · B[b,s,n],
     Δ = dt·a, as one batched matmul in f32. ``ΣΔ_total − ΣΔ_s`` is summed
     directly (the sum of Δ after s), so no large cumulative sums cancel.
-    x (B,S,H,P); dt (B,S,H) f32; a (H,); b (B,S,N) → (B,H,P,N) f32.
+    x (B,S,H,P); dt (B,S,H) f32; a (H,); b (B,S,N) or (B,S,G,N) →
+    (B,H,P,N) f32.
     """
     da = dt.float() * a.float()[None, None, :]  # (B,S,H)
     after = torch.flip(torch.cumsum(torch.flip(da, [1]), 1), [1])  # Σ_{j ≥ s}
     after = F.pad(after[:, 1:], (0, 0, 0, 1))  # Σ_{j > s}
     w = torch.exp(after) * dt.float()  # (B,S,H)
     xw = (x.float() * w[..., None]).permute(0, 2, 3, 1)  # (B,H,P,S)
-    return torch.matmul(xw, b.float()[:, None])  # (B,H,P,N)
+    if b.dim() == 3:
+        return torch.matmul(xw, b.float()[:, None])  # (B,H,P,N)
+    bs, h, p, s = xw.shape
+    g = b.shape[2]
+    bg = b.float().permute(0, 2, 1, 3)[:, :, None]  # (B,G,1,S,N)
+    return torch.matmul(xw.reshape(bs, g, h // g, p, s), bg).reshape(bs, h, p, -1)
 
 
 def ssd_reference(x, dt, a, b, c, h0=None):
-    """Sequential per-step oracle (slow; tests only)."""
+    """Sequential per-step oracle (slow; tests only). b, c (B,S,N) or
+    (B,S,G,N)."""
+    if b.dim() == 4:
+        return by_group(ssd_reference, x, dt, a, b, c, h0=h0)
     bs, s, h, p = x.shape
     n = b.shape[-1]
     hstate = (h0.float() if h0 is not None
@@ -162,15 +177,19 @@ def ssd_reference(x, dt, a, b, c, h0=None):
 
 def ssd_step(hstate, x_t, dt_t, a, b_t, c_t):
     """One decode step, in place. hstate (B,H,P,N) f32; x_t (B,H,P);
-    dt_t (B,H); b_t, c_t (B,N). Returns (y_t (B,H,P) f32, hstate)."""
+    dt_t (B,H); b_t, c_t (B,N), or (B,G,N) per group. Returns
+    (y_t (B,H,P) f32, hstate)."""
     bs, h, p, n = hstate.shape
     dtf = dt_t.float()
     hstate.mul_(torch.exp(dtf * a[None, :])[:, :, None, None])
     inject_x = (dtf[..., None] * x_t.float()).reshape(bs * h, p, 1)
-    inject_b = b_t.float()[:, None, None, :].expand(bs, h, 1, n).reshape(bs * h, 1, n)
+    if b_t.dim() == 2:  # one group
+        b_t, c_t = b_t[:, None], c_t[:, None]
+    g = b_t.shape[1]
+    inject_b = b_t.float()[:, :, None, None, :].expand(bs, g, h // g, 1, n).reshape(bs * h, 1, n)
     hstate.view(bs * h, p, n).baddbmm_(inject_x, inject_b)  # h·decay + dt x ⊗ B
-    y = torch.matmul(hstate, c_t.float()[:, None, :, None])[..., 0]
-    return y, hstate
+    y = torch.matmul(hstate.view(bs, g, h // g, p, n), c_t.float()[:, :, None, :, None])
+    return y.reshape(bs, h, p), hstate
 
 
 # --------------------------------------------------------------- full block
@@ -192,7 +211,8 @@ def _causal_conv(seq: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 def mamba2_forward(p: dict, x: torch.Tensor, *, d_state: int, head_dim: int = 64,
                    chunk: int = 128, state: Optional[dict] = None,
-                   step: bool = False) -> Tuple[torch.Tensor, Optional[dict]]:
+                   step: bool = False, groups: int = 1,
+                   norm_eps: float = 1e-6) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full Mamba-2 mixer. x: (B, S, D) → (B, S, D).
 
     ``state`` ({"h": (B,H,P,N) f32, "conv": (B,W-1,C)}) is overwritten in
@@ -200,7 +220,10 @@ def mamba2_forward(p: dict, x: torch.Tensor, *, d_state: int, head_dim: int = 64
     continues from that state through :func:`ssd_step`; otherwise x is a
     whole prompt and starts from a zero state and a zero conv prefix,
     reading nothing of ``state`` — so a reused state needs no reset. (The
-    JAX function continues from a given state either way.)
+    JAX function continues from a given state either way.) With
+    ``groups`` > 1, B and C are given per group and the gated RMS norm
+    normalises each group's ``d_inner / groups`` channels on its own
+    (Zamba2's ``Zamba2RMSNormGated``), with ``norm_eps``.
     Returns (out, state).
     """
     bsz, s, _ = x.shape
@@ -211,14 +234,18 @@ def mamba2_forward(p: dict, x: torch.Tensor, *, d_state: int, head_dim: int = 64
 
     zxbcdt = x @ p["in_proj"]
     z = zxbcdt[..., :d_inner]
-    conv_in = zxbcdt[..., d_inner:2 * d_inner + 2 * d_state]  # [x | B | C]
-    dt = zxbcdt[..., 2 * d_inner + 2 * d_state:]
+    gn = groups * d_state
+    conv_in = zxbcdt[..., d_inner:2 * d_inner + 2 * gn]  # [x | B | C]
+    dt = zxbcdt[..., 2 * d_inner + 2 * gn:]
     conv_out, conv_state = _causal_conv(conv_in, p["conv"], p["conv_bias"],
                                         state["conv"] if step else None)
     conv_out = F.silu(conv_out)
     xin = conv_out[..., :d_inner]
-    b = conv_out[..., d_inner:d_inner + d_state]
-    c = conv_out[..., d_inner + d_state:]
+    b = conv_out[..., d_inner:d_inner + gn]
+    c = conv_out[..., d_inner + gn:]
+    if groups > 1:  # views (B, S, G, N): the kernel reads strides
+        b = b.unflatten(-1, (groups, d_state))
+        c = c.unflatten(-1, (groups, d_state))
 
     dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])
     a = -torch.exp(p["a_log"])  # (H,) negative decay rates
@@ -237,9 +264,9 @@ def mamba2_forward(p: dict, x: torch.Tensor, *, d_state: int, head_dim: int = 64
     y = y.reshape(bsz, s, d_inner)
 
     # gated RMS norm (mamba2's norm-before-out-proj, gated by z)
-    yf = y.float() * F.silu(z.float())
+    yf = (y.float() * F.silu(z.float())).unflatten(-1, (groups, d_inner // groups))
     var = torch.mean(yf * yf, dim=-1, keepdim=True)
-    yf = yf * torch.rsqrt(var + 1e-6) * p["norm_scale"].float()
+    yf = (yf * torch.rsqrt(var + norm_eps)).flatten(-2) * p["norm_scale"].float()
     out = yf.to(x.dtype) @ p["out_proj"]
     return out, state
 

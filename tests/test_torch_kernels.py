@@ -429,3 +429,136 @@ def test_ssd_heads_a_block_at_the_serving_shapes():
     assert not tssd.uses_tensor_cores(torch.float32, 64, 64)
     assert not tssd.uses_tensor_cores(torch.bfloat16, 8, 64)
     assert tssd.uses_tensor_cores(torch.bfloat16, 16, 128)
+
+
+# ------------------------------------------------ Zamba2-7B's kernel shapes
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_at_head_dim_224_matches_jax_kernels(dtype):
+    """Zamba2-7B's shared-block attention (head dim 224, no grouping; two of
+    its 32 heads here): flash over a 256-token prompt and decode over a
+    320-row cache, the plain versions against the Pallas kernels."""
+    b, s, h, d = 2, 256, 2, 224
+    (q, k, v), (jq, jk, jv) = _inputs(7, [(b, s, h, d)] * 3, dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=True, block_q=128, block_k=128,
+                                interpret=True)
+    _close(tops.flash_attention(q, k, v, causal=True), want, dtype)
+    (q, kc, vc), (jq, jk, jv) = _inputs(8, [(b, 1, h, d), (b, 320, h, d), (b, 320, h, d)],
+                                        dtype)
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(300), block_k=128, interpret=True)
+    _close(tops.decode_attention(q, kc, vc, torch.tensor(300, dtype=torch.int32)), want, dtype)
+    assert 224 in tfa.SUPPORTED_HEAD_DIMS and 224 in tdec.SUPPORTED_HEAD_DIMS
+
+
+def _grouped_ssd_np(seed, b, s, h, p, n, groups):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a = -np.exp(rng.standard_normal(h) * 0.3).astype(np.float32)
+    bb, cc = (rng.standard_normal((b, s, groups, n)).astype(np.float32) for _ in range(2))
+    return x, dt, a, bb, cc
+
+
+@pytest.mark.parametrize("b,s,h,p,n,groups,chunk", [
+    (1, 64, 4, 16, 16, 2, 16),     # two groups of two heads, four chunks
+    (2, 100, 6, 16, 32, 3, 32),    # three groups, ragged S
+    (1, 40, 4, 32, 16, 2, 128),    # one ragged chunk: no state term
+])
+def test_grouped_ssd_plain_versions_match_the_jax_kernel_per_group(b, s, h, p, n, groups,
+                                                                   chunk):
+    """B and C per group, (B, S, G, N): the plain version, the tensor-core
+    kernel's rendering and the sequential oracle against the Pallas kernel
+    run on each group's heads with that group's B and C."""
+    x, dt, a, bb, cc = _grouped_ssd_np(s + h, b, s, h, p, n, groups)
+    hpg = h // groups
+    kernel = jax.jit(functools.partial(jops.ssd_scan, chunk=chunk, interpret=True))
+    for dtype in ("float32", "bfloat16"):
+        jd = getattr(jnp, dtype)
+        want = np.concatenate([np.asarray(kernel(
+            jnp.asarray(x[:, :, g * hpg:(g + 1) * hpg]).astype(jd),
+            jnp.asarray(dt[:, :, g * hpg:(g + 1) * hpg]), jnp.asarray(a[g * hpg:(g + 1) * hpg]),
+            jnp.asarray(bb[:, :, g]).astype(jd), jnp.asarray(cc[:, :, g]).astype(jd)),
+            np.float32) for g in range(groups)], axis=2)
+        td = getattr(torch, dtype)
+        tx, tb, tc = (torch.from_numpy(t).to(td) for t in (x, bb, cc))
+        tdt, ta = torch.from_numpy(dt), torch.from_numpy(a)
+        np.testing.assert_allclose(tops.ssd_scan(tx, tdt, ta, tb, tc, chunk=chunk).float().numpy(),
+                                   want, atol=SSD_TOL[dtype], rtol=SSD_TOL[dtype])
+        np.testing.assert_allclose(tref.ssd_scan_grouped(tx, tdt, ta, tb, tc, chunk=chunk)
+                                   .float().numpy(), want, atol=SSD_TOL[dtype],
+                                   rtol=SSD_TOL[dtype])
+    f32 = [torch.from_numpy(t) for t in (x, dt, a, bb, cc)]
+    torch.testing.assert_close(tref.ssd_scan(*f32, chunk=chunk), tref.ssd_scan_sequential(*f32),
+                               atol=SSD_TOL["float32"], rtol=SSD_TOL["float32"])
+
+
+def test_one_group_of_b_and_c_is_the_shared_layout():
+    """(B, S, 1, N) and (B, S, N) give the same scan, state and step."""
+    from repro_torch.models import ssm
+
+    x, dt, a, bb, cc = (torch.from_numpy(t) for t in _grouped_ssd_np(3, 2, 30, 4, 16, 16, 1))
+    y1, h1 = ssm.ssd_chunked(x, dt, a, bb, cc, chunk=8)
+    y0, h0 = ssm.ssd_chunked(x, dt, a, bb[:, :, 0], cc[:, :, 0], chunk=8)
+    torch.testing.assert_close(y1, y0, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(h1, h0, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(ssm._ssd_final_state(x, dt, a, bb), h0, atol=1e-5, rtol=1e-5)
+    s1, s0 = h0.clone(), h0.clone()
+    z1, _ = ssm.ssd_step(s1, x[:, 0], dt[:, 0], a, bb[:, 0], cc[:, 0])
+    z0, _ = ssm.ssd_step(s0, x[:, 0], dt[:, 0], a, bb[:, 0, 0], cc[:, 0, 0])
+    torch.testing.assert_close(z1, z0, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(s1, s0, atol=1e-6, rtol=1e-6)
+
+
+def test_grouped_ssd_launcher_refuses_what_the_kernel_does_not_take():
+    sx, sdt, sa = torch.zeros((1, 8, 6, 16)), torch.zeros((1, 8, 6)), torch.zeros(6)
+    with pytest.raises(ValueError, match="groups"):
+        tssd.ssd_scan_fwd(sx, sdt, sa, torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8, 4, 16)))
+    with pytest.raises(ValueError, match="same"):
+        tssd.ssd_scan_fwd(sx, sdt, sa, torch.zeros((1, 8, 2, 16)), torch.zeros((1, 8, 3, 16)))
+    with pytest.raises(ValueError, match="CUDA"):  # two groups of three: taken
+        tssd.ssd_scan_fwd(sx, sdt, sa, torch.zeros((1, 8, 2, 16)), torch.zeros((1, 8, 2, 16)))
+
+
+def test_published_zamba2_inputs_meet_the_kernels_layout_rules(monkeypatch):
+    """The tensors the published layout (Zamba2-7B's, at a small size, in
+    bf16 as served) hands to ``ops.flash_attention``,
+    ``ops.decode_attention`` and ``ops.ssd_scan`` pass every check of the
+    kernels' launchers (16-byte rows, grouped B and C, the tensor-core SSD
+    path); on the CPU only the device check is left."""
+    cfg = dataclasses.replace(
+        tget_config("zamba2-7b"), num_layers=5, d_model=64, num_heads=2, num_kv_heads=2,
+        head_dim=64, d_ff=96, vocab_size=128, max_seq_len=64, ssm_state=16, ssm_head_dim=16,
+        ssm_chunk=8, hybrid_layer_ids=(1, 4), attention_hidden_size=128, adapter_rank=8)
+    flash, decode, ssd = tops.flash_attention, tops.decode_attention, tops.ssd_scan
+    seen = {"flash": 0, "decode": 0, "ssd": 0}
+
+    def flash_checked(q, k, v, *, causal=True):
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa.flash_attention_fwd(q, k, v, causal=causal)
+        seen["flash"] += 1
+        return flash(q, k, v, causal=causal)
+
+    def decode_checked(q, k_cache, v_cache, cache_len):
+        with pytest.raises(ValueError, match="CUDA"):
+            tdec.decode_attention_fwd(q, k_cache, v_cache, torch.as_tensor(cache_len)
+                                      .to(torch.int32))
+        seen["decode"] += 1
+        return decode(q, k_cache, v_cache, cache_len)
+
+    def ssd_checked(x, dt, a, b, c, *, chunk=128):
+        assert b.dim() == 4 and b.shape[2] == cfg.ssm_groups
+        assert tssd.uses_tensor_cores(x.dtype, x.shape[-1], b.shape[-1])
+        with pytest.raises(ValueError, match="CUDA"):
+            tssd.ssd_scan_fwd(x, dt, a, b, c, chunk=chunk)
+        seen["ssd"] += 1
+        return ssd(x, dt, a, b, c, chunk=chunk)
+
+    monkeypatch.setattr(tops, "flash_attention", flash_checked)
+    monkeypatch.setattr(tops, "decode_attention", decode_checked)
+    monkeypatch.setattr(tops, "ssd_scan", ssd_checked)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)))
+    cache = model.init_cache(2, 16)
+    logits, cache = model.prefill(params, prompt, cache)
+    model.decode_step(params, logits.argmax(-1)[:, -1:], cache)
+    assert seen == {"flash": 2, "decode": 2, "ssd": 5}

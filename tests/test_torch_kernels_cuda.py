@@ -604,3 +604,83 @@ def test_reduced_loss_grads_on_the_card_match_the_cpu(cuda, arch):
     (training runs the plain versions)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     _chip_smoke().train_reduced(torch, arch)
+
+
+def _grouped_ssd_views(seed, b, s, h, p, n, groups, dtype, device):
+    """x, dt, a, B and C as the published Zamba2 layout hands them over:
+    views of one conv output (B, S, H·P + 2·G·N), B and C (B, S, G, N)."""
+    rng = np.random.default_rng(seed)
+    gn = groups * n
+    conv = torch.from_numpy(rng.standard_normal((b, s, h * p + 2 * gn)).astype(np.float32))
+    conv = conv.to(getattr(torch, dtype)).to(device)
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    bb = conv[..., h * p:h * p + gn].unflatten(-1, (groups, n))
+    cc = conv[..., h * p + gn:].unflatten(-1, (groups, n))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32)) - 3.0).to(device)
+    a = -torch.linspace(1.0, 16.0, h, device=device)
+    return x, dt, a, bb, cc
+
+
+@pytest.mark.cuda
+class TestZamba2SevenBKernels:
+    """The kernels at Zamba2-7B's serving shapes: attention at head dim 224
+    (32 heads, no grouping, prompt 256, cache of 320 rows) and the SSD scan
+    with B and C in two groups of 56 heads (chunk 128, two chunks a
+    prompt), held to their plain versions at the tolerances above."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_attention_kernels_at_head_dim_224(self, cuda, dtype):
+        d = 224
+        for b, s, hq, hkv, causal in ((8, 256, 32, 32, True), (2, 1, 32, 32, True),
+                                      (2, 77, 4, 2, False), (1, 130, 4, 4, True)):
+            q, k, v = (t.to(cuda) for t in _inputs(
+                s + b, [(b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)], dtype))
+            tops.reset_launches()
+            got = tops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert tops.launches()["flash_attention"] == 1
+            want = tref.flash_attention(q, k, v, causal=causal)
+            _close(got, want, dtype)
+            _close_to_scale(got, want, dtype)
+        b, s_max, hq, hkv = 8, 320, 32, 32
+        q, kc, vc = (t.to(cuda) for t in _inputs(
+            d, [(b, 1, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d)], dtype))
+        per_row = torch.tensor([0, 1, 77, 128, 255, 257, 319, 320], dtype=torch.int32,
+                               device=cuda)
+        for lens in [torch.tensor([n], dtype=torch.int32, device=cuda)
+                     for n in (0, 1, 257, 320)] + [per_row]:
+            for sl in (None, 48):
+                split_len = sl or tdec.split_plan(b, hkv, s_max)[1]
+                got = tdec.decode_attention_fwd(q, kc, vc, lens, split_len=sl)
+                torch.cuda.synchronize()
+                _close(got, tref.decode_attention_split(q, kc, vc, lens, split_len), dtype)
+                if int(lens.min()) > 0:
+                    _close(got, tref.decode_attention(q, kc, vc, lens), dtype)
+
+    @pytest.mark.parametrize("b,s,h,p,n,groups,chunk,dtype", [
+        (8, 256, 112, 64, 64, 2, 128, "bfloat16"),   # Zamba2-7B at bucket 8
+        (1, 256, 112, 64, 64, 2, 128, "bfloat16"),   # bucket 1: a head a block
+        (32, 256, 112, 64, 64, 2, 128, "bfloat16"),  # bucket 32
+        (2, 100, 8, 64, 64, 2, 32, "bfloat16"),      # ragged S over four chunks
+        (2, 100, 6, 16, 32, 3, 32, "float32"),       # three groups, CUDA-core kernel
+        (2, 40, 4, 8, 32, 2, 16, "bfloat16"),        # P = 8: CUDA-core kernel in bf16
+    ])
+    def test_grouped_ssd_kernel_matches_plain(self, cuda, b, s, h, p, n, groups, chunk,
+                                              dtype):
+        x, dt, a, bb, cc = _grouped_ssd_views(s + h, b, s, h, p, n, groups, dtype, cuda)
+        tops.reset_launches()
+        got = tops.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+        torch.cuda.synchronize()
+        assert tops.launches()["ssd_scan"] == 1
+        _close(got, _ssd_plain_f32(x, dt, a, bb, cc, chunk), dtype, SSD_TOL)
+        if dtype == "bfloat16" and p >= 16:
+            _close(got, tref.ssd_scan_grouped(x, dt, a, bb, cc, chunk=chunk), dtype)
+
+    def test_one_group_is_the_shared_layout(self, cuda):
+        """B and C as (B, S, 1, N) give what (B, S, N) gives, bit for bit."""
+        x, dt, a, bb, cc = _grouped_ssd_views(3, 4, 200, 16, 64, 64, 1, "bfloat16", cuda)
+        one = tops.ssd_scan(x, dt, a, bb, cc, chunk=128)
+        shared = tops.ssd_scan(x, dt, a, bb[:, :, 0], cc[:, :, 0], chunk=128)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(one, shared, rtol=0, atol=0)
