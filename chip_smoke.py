@@ -35,7 +35,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    timed with their bounds: flash at B = 8, S = 256, 32 q and kv heads of
    224; decode over a 320-row cache at B = 8 (full and per-row lengths);
    the SSD scan at B = 8, S = 256, H = 112, P = N = 64 with B and C per
-   group (G = 2), as views of one conv output. Every flash and decode case is also
+   group (G = 2), as views of one conv output. The fused Mamba-2 decode
+   step (``ops.mamba2_step``) against its plain version, the model's mixer,
+   on the same inputs and state (f32 to 2e-5, bf16 to 8e-2; the conv state
+   exactly) at Zamba2-7B's widths at B = 1, 8 and 32 and at Zamba2-1.2B's
+   shared B and C, then timed at Zamba2-7B's widths at B = 1, 8 and 32
+   beside its bound and the plain decode path (its two kernels apart, from
+   torch.profiler, last of all, after phase 11).
+   Every flash and decode case is also
    held to its error over each output row's rms (``SCALED_TOL``: at 4096
    keys the outputs are ~0.026, below the absolute tolerance), and at
    4096 keys the plain version that skips keys 64-127 must fail that gate.
@@ -61,8 +68,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    0 just before it and reads them just after: every batch must have
    replayed both graphs, and each model's kernels must have run once per
    layer (for Zamba2, once per Mamba layer and once per shared-block
-   application) for every prefill and, for the attention models, every
-   decode step; the ``kernels`` line sums them over the runs. Then: the
+   application) for every prefill and, for the attention models and
+   Zamba2's fused Mamba-2 step, every decode step; the ``kernels`` line
+   sums them over the runs. Then: the
    replayed graphs must give the eager per-token loop's tokens, for one
    batch and for two through the pooled cache; a pooled cache must give a
    batch the tokens a fresh cache gives it; for qwen2-0.5b, a decode past
@@ -93,7 +101,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    32, prompt 128, 16 tokens): warmup captures the graphs, one
    ``generate()`` a bucket with exact launches, its tokens exactly the
    per-token eager loop's; the peak memory and the two graphs' device
-   time at bucket 32.
+   time at bucket 32. Then zamba2-7b alone at its benchmark cell's shapes
+   (prompt 256, 64 tokens): the prefill and decode-loop graphs' device
+   time at buckets 1, 8 and 32, and the loop's ms a decode step.
 8. Encoder-decoder: seamless-m4t-large-v2 at full width, nothing cut
    (1.632 G params, bf16, weights from seed 0), through ``Model.prefill``
    on (B, 4096, 1024) random frames and 128-token prompts, then 15 greedy
@@ -1033,7 +1043,127 @@ def phase_kernels(torch):
         f"chunk={chunk} bf16): kernel {ms:.5f} ms (B and C shared: {shared_ms:.5f} ms), plain "
         f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.3f} GFLOP)")
+    rows["mamba2_step"] = mamba2_step_kernels(torch)
     return rows
+
+
+def mamba2_step_inputs(torch, b: int, h: int, p: int, n: int, groups: int, dtype, seed=0):
+    """One Mamba-2 layer's decode-step arguments as the model hands them to
+    ``ops.mamba2_step``: the in_proj output (B, 1, [z | x | B | C | dt]) as
+    a column slice of a wider buffer, the layer's conv weight (width 4) and
+    bias, dt_bias, a_log, D and the norm's scale (biases, D and scale
+    random), and a nonzero state (h, conv). Returns (zx, weights, state)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    d_inner = h * p
+    conv_dim = d_inner + 2 * groups * n
+    width = d_inner + conv_dim + h
+    zx = rand(b, 1, width + 24).to(dtype)[..., 8:8 + width]
+    weights = (rand(4, conv_dim, scale=0.3).to(dtype), rand(conv_dim, scale=0.1).to(dtype),
+               rand(h, scale=0.5) - 1.0, torch.log(torch.linspace(1.0, 16.0, h, device="cuda")),
+               1.0 + rand(h, scale=0.5), (1.0 + rand(d_inner, scale=0.1)).to(dtype))
+    return zx, weights, (rand(b, h, p, n, scale=0.5), rand(b, 3, conv_dim).to(dtype))
+
+
+def mamba2_step_cost(b: int, h: int, p: int, n: int, groups: int, dtype_bytes: int = 2):
+    """(bytes, flops) of one fused decode step: the f32 state read and
+    written, the in_proj output read, the conv state read and written, the
+    layer's weights read, the output written (each once); per state element
+    a decay, an injection and a C·h product (5 flops)."""
+    d_inner = h * p
+    conv_dim = d_inner + 2 * groups * n
+    nbytes = (2 * 4 * b * h * p * n + dtype_bytes * b * (d_inner + conv_dim + h)
+              + 2 * dtype_bytes * b * 3 * conv_dim + dtype_bytes * (5 * conv_dim + d_inner)
+              + 4 * 3 * h + dtype_bytes * b * d_inner)
+    return nbytes, 5.0 * b * h * p * n
+
+
+def mamba2_step_kernels(torch) -> dict:
+    """The fused Mamba-2 decode step against its plain version (the model's
+    mixer, ``ref.mamba2_step``) on the same inputs and states: the output and
+    the state (f32 to TOL, bf16 to SSD_TOL), the conv state exactly; at
+    Zamba2-7B's widths (112 heads of 64, state 64, 2 groups) at buckets 1, 8
+    and 32 and Zamba2-1.2B's layout (64 heads, B and C shared) at 8. Then timed at
+    Zamba2-7B's widths, bf16, buckets 1, 8 and 32, beside the plain decode
+    path (``plain ms``); :func:`mamba2_step_apart` times its two kernels
+    apart. Returns the kernel table's row (bucket 8)."""
+    from repro_torch.kernels import mamba2_step as _m2
+    from repro_torch.kernels import ops, ref
+
+    max_err = 0.0
+    for dn in ("float32", "bfloat16"):
+        dtype = getattr(torch, dn)
+        tol = TOL[dn] if dn == "float32" else SSD_TOL[dn]
+        for b, h, groups in ((1, 112, 2), (8, 112, 2), (32, 112, 2), (8, 64, 1)):
+            zx, w, state = mamba2_step_inputs(torch, b, h, 64, 64, groups, dtype, seed=b + h)
+            got_state = tuple(u.clone() for u in state)
+            want_state = tuple(u.clone() for u in state)
+            what = f"mamba2_step B={b} H={h} P=N=64 G={groups} {dn}"
+            got = ops.mamba2_step(zx, *w, *got_state, groups=groups, eps=1e-5)
+            want = ref.mamba2_step(zx, *w, *want_state, groups=groups, eps=1e-5)
+            torch.cuda.synchronize()
+            err = check_close(torch, got, want, tol, what)
+            state_err = check_close(torch, got_state[0], want_state[0], tol, what + " state")
+            if not torch.equal(got_state[1], want_state[1]):
+                raise AssertionError(f"{what}: conv state differs from the plain version's")
+            max_err = max(max_err, err)
+            log(f"[kernels] {what}: max abs err {err:.3e} (state {state_err:.3e}, conv state "
+                f"equal), {_m2.splits(b, h, 64)} blocks a head")
+    h, p, n, groups = 112, 64, 64, 2
+    row = None
+    for b in (1, 8, 32):
+        zx, w, state = mamba2_step_inputs(torch, b, h, p, n, groups, torch.bfloat16)
+
+        def fused():
+            return ops.mamba2_step(zx, *w, *state, groups=groups, eps=1e-5)
+
+        ms = device_ms(torch, fused)
+        plain_ms = device_ms(torch, lambda: ref.mamba2_step(zx, *w, *state, groups=groups,
+                                                            eps=1e-5))
+        nbytes, flops = mamba2_step_cost(b, h, p, n, groups)
+        bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+        log(f"[kernels] mamba2_step timed at Zamba2-7B's widths (B={b} H={h} P={p} N={n} "
+            f"G={groups} bf16, {_m2.splits(b, h, p)} blocks a head): both kernels {ms:.5f} ms, "
+            f"plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.2f} MB), {ms / bound_ms:.2f}x the bound")
+        if b == 8:
+            row = dict(route="cuda", source="src/repro_torch/kernels/csrc/mamba2_step.cu",
+                       replaces="none (the JAX package's plain decode step)",
+                       max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None,
+                       shape=f"B={b} H={h} P={p} N={n} G={groups} bf16")
+    return row
+
+
+def mamba2_step_apart(torch) -> None:
+    """The fused decode step's two kernels apart, at Zamba2-7B's widths,
+    bf16, buckets 1, 8 and 32: the median device ms of each over 25 calls,
+    from torch.profiler. Run last, after every phase that checks a
+    profile's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    for b in (1, 8, 32):
+        zx, w, state = mamba2_step_inputs(torch, b, 112, 64, 64, 2, torch.bfloat16)
+        ops.mamba2_step(zx, *w, *state, groups=2, eps=1e-5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(25):
+                ops.mamba2_step(zx, *w, *state, groups=2, eps=1e-5)
+            torch.cuda.synchronize()
+        apart = collections.defaultdict(list)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and "mamba_" in e.name:
+                apart["norm" if "norm" in e.name else "step"].append(
+                    e.time_range.elapsed_us() / 1e3)
+        step_ms, norm_ms = (statistics.median(apart[k]) if apart[k] else float("nan")
+                            for k in ("step", "norm"))
+        log(f"[kernels] mamba2_step at Zamba2-7B's widths, B={b} bf16, profiled apart: step "
+            f"kernel {step_ms:.5f} ms, gated norm {norm_ms:.5f} ms")
 
 
 def expected_launches(cfg, prefills: int, steps: int) -> dict:
@@ -1041,8 +1171,9 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     decode steps of ``cfg``'s model: attention once per layer for the dense,
     MoE and VLM families; for xLSTM the mLSTM kernel once per mLSTM block and prefill
     (decode runs the plain recurrent cells); for the hybrid the SSD scan
-    once per Mamba layer and prefill (decode runs the plain step) and
-    attention once per application of the shared block; for the
+    once per Mamba layer and prefill, the fused decode step once per Mamba
+    layer and step, and attention once per application of the shared
+    block; for the
     encoder-decoder flash once per encoder layer and twice per decoder
     layer (self, cross) and prefill, decode twice per decoder layer and
     step."""
@@ -1062,6 +1193,7 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     elif cfg.family == "hybrid":
         apps = hybrid.n_attn_apps(cfg)
         want["ssd_scan"] = cfg.num_layers * prefills
+        want["mamba2_step"] = cfg.num_layers * steps
         want["flash_attention"] = apps * prefills
         want["decode_attention"] = apps * steps
     else:
@@ -1492,9 +1624,12 @@ def check_replica_streams(torch, engine) -> None:
         raise AssertionError("replica 1 gave other tokens beside a busy replica 0")
 
 
-#: name prefix of each port kernel's entry functions -> its wrapper
+#: name prefix of each port kernel's entry functions -> its wrapper (the
+#: Mamba-2 decode step's second launch, its gated norm, is not counted: the
+#: wrapper counts one launch a call)
 KERNEL_PREFIXES = {"flash_": "flash_attention", "decode_": "decode_attention",
-                   "mlstm_": "mlstm_attention", "ssd_": "ssd_scan"}
+                   "mlstm_": "mlstm_attention", "ssd_": "ssd_scan",
+                   "mamba_step_": "mamba2_step"}
 
 
 def port_kernel(name: str):
@@ -1961,6 +2096,31 @@ def phase_wide(torch) -> dict:
         torch.cuda.empty_cache()
     return launches
 
+def phase_zamba2_steps(torch, buckets=(1, 8, 32)) -> None:
+    """Zamba2-7B whole (81 layers, bf16, weights from seed 0) at the
+    zamba2-7b-chat-burst cell's shapes (prompt 256, 64 tokens): the device
+    ms of the prefill graph and of the decode-loop graph at each bucket,
+    replayed alone (``graph_split_ms``), and the loop's ms a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    t0 = time.monotonic()
+    plen, gen_len = 256, 64
+    ecfg = EngineConfig(batch_buckets=tuple(buckets), prompt_buckets=(plen,),
+                        max_len=plen + gen_len, gen_len=gen_len)
+    engine = InferenceEngine(get_config("zamba2-7b"), ecfg, seed=0, device="cuda")
+    engine.warmup()
+    for bucket in buckets:
+        prefill_ms, loop_ms = graph_split_ms(torch, engine, bucket=bucket, plen=plen)
+        log(f"[zamba2-7b] bucket {bucket} x {plen}, {gen_len} tokens: prefill graph "
+            f"{prefill_ms:.3f} ms, decode-loop graph {loop_ms:.3f} ms, "
+            f"{loop_ms / (gen_len - 1):.3f} ms a decode step")
+    log(f"[zamba2-7b] decode steps timed in {time.monotonic() - t0:.1f} s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------- encoder-decoder
 def plain_flash(torch, q, k, v, causal: bool):
     """``ref.flash_attention`` two batch rows at a time, so the encoder's
@@ -2357,12 +2517,25 @@ def check_training_refuses_kernels(torch, names=None) -> None:
                                           + 2.0).requires_grad_(True)), {}),
         "ssd_scan": (tuple(u.detach().clone().requires_grad_(True) for u in ssd),
                      {"chunk": 8}),
+        # the decode step: 4 heads of 16, state 16, 2 groups (zx 64 + 128 + 4
+        # wide), its state (h, conv) last
+        "mamba2_step": ((t(2, 1, 196), t(4, 128), t(128), t(4), t(4), t(4), t(64),
+                         torch.randn((2, 4, 16, 16), generator=gen, device="cuda"),
+                         torch.randn((2, 3, 128), generator=gen, device="cuda")),
+                        {"groups": 2}),
     }
+    #: trailing arguments a wrapper updates in place: each call gets fresh copies
+    in_place = {"mamba2_step": 2}
+
+    def fresh(name, args):
+        k = in_place.get(name, 0)
+        return (*args[:len(args) - k], *(u.clone() for u in args[len(args) - k:]))
+
     for name in names or ops.WRAPPERS:
         args, kw = inputs[name]
         wrapper, plain = ops.WRAPPERS[name], getattr(ref, name)
         try:
-            wrapper(*args, **kw)
+            wrapper(*fresh(name, args), **kw)
         except RuntimeError as e:
             if "no backward" not in str(e):
                 raise
@@ -2370,20 +2543,20 @@ def check_training_refuses_kernels(torch, names=None) -> None:
             raise AssertionError(f"{name}: a requires-grad CUDA input did not raise")
         before = ops.launches()
         with torch.no_grad():
-            wrapper(*args, **kw)
+            wrapper(*fresh(name, args), **kw)
         torch.cuda.synchronize()
         if ops.launches()[name] != before[name] + 1:
             raise AssertionError(f"{name}: under no_grad the kernel did not launch once")
         before = ops.launches()
         with ops.plain_versions():
-            got = wrapper(*args, **kw)
+            got = wrapper(*fresh(name, args), **kw)
         if ops.launches() != before:
             raise AssertionError(f"{name}: plain_versions() launched kernels: {before} -> "
                                  f"{ops.launches()}")
         if got.grad_fn is None:
             raise AssertionError(f"{name}: the plain version inside plain_versions() "
                                  "lost its gradient")
-        if not torch.equal(got, plain(*args, **kw)):
+        if not torch.equal(got, plain(*fresh(name, args), **kw)):
             raise AssertionError(f"{name}: inside plain_versions() the result is not the "
                                  "plain version's")
         got.square().sum().backward()
@@ -3008,12 +3181,14 @@ def main() -> int:
     t0 = time.monotonic()
     add_counts(launches, phase_wide(torch))
     log(f"[wide] phase {time.monotonic() - t0:.1f} s")
+    phase_zamba2_steps(torch)
     t0 = time.monotonic()
     add_counts(launches, phase_encdec(torch))
     log(f"[encdec] phase {time.monotonic() - t0:.1f} s")
     phase_fleet(torch)
     phase_train(torch)
     add_counts(launches, phase_placement(torch))
+    mamba2_step_apart(torch)
     missing = [name for name in rows if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on a serving path: {missing}")

@@ -3,7 +3,8 @@
 Each wrapper takes the model's tensors — q (B, S, Hq, D), k/v or one
 layer's cache (B, S, Hkv, D), the mLSTM's q/k/v (B, S, H, D) and gates
 (B, S, H), the SSD scan's x (B, S, H, P), dt (B, S, H) and B/C, shared
-(B, S, N) or per group (B, S, G, N) — and dispatches on where they lie:
+(B, S, N) or per group (B, S, G, N), the Mamba-2 decode step's in_proj
+output, layer weights and state — and dispatches on where they lie:
 
 * a CUDA tensor launches the hand-written kernel (or raises: there is no
   fallback), and only then adds one to the wrapper's ``launches`` count;
@@ -39,6 +40,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba2_step as _m2
 from repro_torch.kernels import mlstm_attention as _ml
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
@@ -193,9 +195,36 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
 
 ssd_scan.launches = 0
 
-#: The ported kernels' wrappers, by kernel name.
+
+def mamba2_step(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale, h, conv, *,
+                groups: int = 1, eps: float = 1e-6):
+    """One Mamba-2 decode step between the projections. zxbcdt: (B, 1,
+    [z | x | B | C | dt]), the in_proj output; the layer's conv weight
+    (W, conv_dim) and bias, dt_bias, a_log and d_skip (H,) f32, the gated
+    norm's scale (d_inner,); h (B, H, P, N) f32 and conv (B, W-1, conv_dim),
+    the decode state, updated in place → the gated, normalised y
+    (B, 1, d_inner) in zxbcdt's dtype, which out_proj reads. B and C come
+    in ``groups`` groups; ``eps`` is the norm's. The kernel (two launches,
+    counted as one) replaces no TPU kernel: the JAX package decodes through
+    plain ops."""
+    if _kernel_route("mamba2_step", zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip,
+                     norm_scale):
+        out = _m2.mamba2_step_fwd(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale,
+                                  h, conv, groups=groups, eps=eps)
+        count_launch(mamba2_step)
+        return out
+    if zxbcdt.device.type == "cpu" or plain_active():
+        return ref.mamba2_step(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale, h,
+                               conv, groups=groups, eps=eps)
+    raise _no_kernel(zxbcdt, "mamba2_step")
+
+
+mamba2_step.launches = 0
+
+#: The port's kernels' wrappers, by kernel name.
 WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decode_attention,
-            "mlstm_attention": mlstm_attention, "ssd_scan": ssd_scan}
+            "mlstm_attention": mlstm_attention, "ssd_scan": ssd_scan,
+            "mamba2_step": mamba2_step}
 
 
 def reset_launches() -> None:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of every ported kernel (same signatures as ops.py).
+"""Plain PyTorch versions of every kernel of the port (same signatures as ops.py).
 
 They reuse the model library's code, as the JAX package's
 ``kernels/ref.py`` re-exports its own: the CPU path and the oracle the
@@ -199,3 +199,14 @@ def ssd_scan_sequential(x, dt, a, b, c):
 
     y, _ = ssd_reference(x, dt, a, b, c)
     return y
+
+
+def mamba2_step(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale, h, conv, *,
+                groups: int = 1, eps: float = 1e-6):
+    """Plain version of ops.mamba2_step (the model's mixer, one decode step)."""
+    from repro_torch.models.ssm import mamba2_mix  # the model imports ops
+
+    p = {"conv": conv_w, "conv_bias": conv_b, "dt_bias": dt_bias, "a_log": a_log,
+         "d_skip": d_skip, "norm_scale": norm_scale}
+    return mamba2_mix(p, zxbcdt, d_state=h.shape[-1], head_dim=h.shape[-2],
+                      state={"h": h, "conv": conv}, step=True, groups=groups, norm_eps=eps)

@@ -11,7 +11,10 @@ Prefill and ``forward`` run the scan through ``kernels/ops.py``
 (``ssd_scan``: the hand-written kernel on a CUDA device, the plain
 :func:`ssd_chunked` on the CPU) and fold the prompt into the decode state
 with :func:`_ssd_final_state` beside it, because the kernel, like the TPU
-kernel it replaces, takes no initial state and returns no final one.
+kernel it replaces, takes no initial state and returns no final one. A
+decode step runs everything between the two projections through
+``kernel_ops.mamba2_step``: the fused decode-step kernel on a CUDA device,
+the plain :func:`mamba2_mix` (its state update :func:`ssd_step`) on the CPU.
 ``ssd_chunked`` with an ``h0`` stays as the oracle. B and C are shared by
 every head, ``(B, S, N)`` (one group, the JAX package's layout), or given
 per group, ``(B, S, G, N)``: head h reads group ``h // (H / G)``, as
@@ -217,7 +220,9 @@ def mamba2_forward(p: dict, x: torch.Tensor, *, d_state: int, head_dim: int = 64
 
     ``state`` ({"h": (B,H,P,N) f32, "conv": (B,W-1,C)}) is overwritten in
     place with the state after x. With ``step`` x is one token that
-    continues from that state through :func:`ssd_step`; otherwise x is a
+    continues from that state through ``kernel_ops.mamba2_step`` (the fused
+    decode-step kernel on a CUDA device; on the CPU :func:`mamba2_mix`,
+    whose state update is :func:`ssd_step`); otherwise x is a
     whole prompt and starts from a zero state and a zero conv prefix,
     reading nothing of ``state`` — so a reused state needs no reset. (The
     JAX function continues from a given state either way.) With
@@ -226,13 +231,31 @@ def mamba2_forward(p: dict, x: torch.Tensor, *, d_state: int, head_dim: int = 64
     (Zamba2's ``Zamba2RMSNormGated``), with ``norm_eps``.
     Returns (out, state).
     """
-    bsz, s, _ = x.shape
-    d_inner = p["out_proj"].shape[0]
-    n_heads = p["a_log"].shape[0]
-    if step and (s != 1 or state is None):
+    if step and (x.shape[1] != 1 or state is None):
         raise ValueError("a decode step takes one token and a state")
-
     zxbcdt = x @ p["in_proj"]
+    if step:
+        y = kernel_ops.mamba2_step(zxbcdt, p["conv"], p["conv_bias"], p["dt_bias"],
+                                   p["a_log"], p["d_skip"], p["norm_scale"], state["h"],
+                                   state["conv"], groups=groups, eps=norm_eps)
+    else:
+        y = mamba2_mix(p, zxbcdt, d_state=d_state, head_dim=head_dim, chunk=chunk,
+                       state=state, groups=groups, norm_eps=norm_eps)
+    return y @ p["out_proj"], state
+
+
+def mamba2_mix(p: dict, zxbcdt: torch.Tensor, *, d_state: int, head_dim: int = 64,
+               chunk: int = 128, state: Optional[dict] = None, step: bool = False,
+               groups: int = 1, norm_eps: float = 1e-6) -> torch.Tensor:
+    """The mixer between the projections: the in_proj output ``zxbcdt``
+    (B, S, [z | x | B | C | dt]) → the gated, normalised y (B, S, d_inner)
+    in its dtype, which out_proj reads; ``state`` as in
+    :func:`mamba2_forward`. With ``step`` it is the plain version of
+    ``kernel_ops.mamba2_step`` (``kernels/ref.py``), the CPU path and the
+    oracle of the fused decode-step kernel."""
+    bsz, s, _ = zxbcdt.shape
+    d_inner = p["norm_scale"].shape[0]
+    n_heads = p["a_log"].shape[0]
     z = zxbcdt[..., :d_inner]
     gn = groups * d_state
     conv_in = zxbcdt[..., d_inner:2 * d_inner + 2 * gn]  # [x | B | C]
@@ -267,8 +290,7 @@ def mamba2_forward(p: dict, x: torch.Tensor, *, d_state: int, head_dim: int = 64
     yf = (y.float() * F.silu(z.float())).unflatten(-1, (groups, d_inner // groups))
     var = torch.mean(yf * yf, dim=-1, keepdim=True)
     yf = (yf * torch.rsqrt(var + norm_eps)).flatten(-2) * p["norm_scale"].float()
-    out = yf.to(x.dtype) @ p["out_proj"]
-    return out, state
+    return yf.to(zxbcdt.dtype)
 
 
 def init_mamba2_state(bsz: int, d_model: int, d_state: int, dtype,

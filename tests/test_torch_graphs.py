@@ -157,7 +157,7 @@ def test_replay_adds_its_recorded_launches(params):
         for _ in range(2):
             eng._replay(g)
         assert kops.launches() == {"flash_attention": 6, "decode_attention": 14,
-                                   "mlstm_attention": 0, "ssd_scan": 0}
+                                   "mlstm_attention": 0, "ssd_scan": 0, "mamba2_step": 0}
         assert eng.graph_replays == 2 and torch.equal(out, torch.full((2,), 2.0))
     finally:
         kops.reset_launches()

@@ -24,6 +24,7 @@ from repro.kernels import ops as jops
 from repro_torch.configs import get_config as tget_config
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import mamba2_step as tm2
 from repro_torch.kernels import mlstm_attention as tml
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -94,8 +95,19 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ssd = tops.ssd_scan(sx, sdt, sa, sb, sb, chunk=8)
     torch.testing.assert_close(ssd, tref.ssd_scan(sx, sdt, sa, sb, sb, chunk=8),
                                rtol=0, atol=0)
+    # one Mamba-2 decode step (d_inner 16, two heads of 8, N 8, conv width 4),
+    # each version on its own copy of the state it updates in place
+    zx = torch.randn((1, 1, 16 + 32 + 2))
+    cw, cb = torch.randn((4, 32)), torch.randn(32)
+    hb, hd, hs, nsc = torch.zeros(2), torch.zeros(2), torch.ones(2), torch.ones(16)
+    h0, c0 = torch.randn((1, 2, 8, 8)), torch.randn((1, 3, 32))
+    h1, c1, h2, c2 = h0.clone(), c0.clone(), h0.clone(), c0.clone()
+    m2 = tops.mamba2_step(zx, cw, cb, hb, hs, hd, nsc, h1, c1)
+    torch.testing.assert_close(m2, tref.mamba2_step(zx, cw, cb, hb, hs, hd, nsc, h2, c2),
+                               rtol=0, atol=0)
+    assert torch.equal(h1, h2) and torch.equal(c1, c2) and not torch.equal(h1, h0)
     assert tops.launches() == {"flash_attention": 0, "decode_attention": 0,
-                               "mlstm_attention": 0, "ssd_scan": 0}
+                               "mlstm_attention": 0, "ssd_scan": 0, "mamba2_step": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -270,7 +282,8 @@ def test_launchers_refuse_misaligned_vector_layouts():
 
 
 #: the kernels each model's prefill and decode step launch
-MODEL_KERNELS = {"qwen2-0.5b": ("flash", "decode"), "zamba2-1.2b": ("flash", "decode", "ssd"),
+MODEL_KERNELS = {"qwen2-0.5b": ("flash", "decode"),
+                 "zamba2-1.2b": ("flash", "decode", "ssd", "mamba2"),
                  "xlstm-1.3b": ("mlstm",), "seamless-m4t-large-v2": ("flash", "decode")}
 
 
@@ -278,15 +291,16 @@ MODEL_KERNELS = {"qwen2-0.5b": ("flash", "decode"), "zamba2-1.2b": ("flash", "de
 def test_model_attention_inputs_meet_the_kernels_layout_rules(arch, monkeypatch):
     """The tensors the reduced models (in bf16, as served) hand to
     ``ops.flash_attention``, ``ops.decode_attention``,
-    ``ops.mlstm_attention`` and ``ops.ssd_scan`` pass every check of the
-    kernels' launchers (the 16-byte layout rules of the tensor-core paths
-    included): on the CPU only the device check is left."""
+    ``ops.mlstm_attention``, ``ops.ssd_scan`` and ``ops.mamba2_step``
+    pass every check of the kernels' launchers (the 16-byte layout rules of
+    the tensor-core paths included): on the CPU only the device check is
+    left."""
     kernels = MODEL_KERNELS[arch]
     cfg = dataclasses.replace(tget_config(arch).reduced(), param_dtype="bfloat16",
                               compute_dtype="bfloat16")
     flash, decode = tops.flash_attention, tops.decode_attention
-    mlstm, ssd = tops.mlstm_attention, tops.ssd_scan
-    seen = {"flash": 0, "decode": 0, "mlstm": 0, "ssd": 0}
+    mlstm, ssd, mamba2 = tops.mlstm_attention, tops.ssd_scan, tops.mamba2_step
+    seen = {"flash": 0, "decode": 0, "mlstm": 0, "ssd": 0, "mamba2": 0}
 
     def flash_checked(q, k, v, *, causal=True):
         with pytest.raises(ValueError, match="CUDA"):
@@ -315,7 +329,14 @@ def test_model_attention_inputs_meet_the_kernels_layout_rules(arch, monkeypatch)
         seen["ssd"] += 1
         return ssd(x, dt, a, b, c, chunk=chunk)
 
+    def mamba2_checked(*args, groups=1, eps=1e-6):
+        with pytest.raises(ValueError, match="CUDA"):
+            tm2.mamba2_step_fwd(*args, groups=groups, eps=eps)
+        seen["mamba2"] += 1
+        return mamba2(*args, groups=groups, eps=eps)
+
     monkeypatch.setattr(tops, "flash_attention", flash_checked)
+    monkeypatch.setattr(tops, "mamba2_step", mamba2_checked)
     monkeypatch.setattr(tops, "decode_attention", decode_checked)
     monkeypatch.setattr(tops, "mlstm_attention", mlstm_checked)
     monkeypatch.setattr(tops, "ssd_scan", ssd_checked)
@@ -336,6 +357,56 @@ def test_model_attention_inputs_meet_the_kernels_layout_rules(arch, monkeypatch)
                                                    2 * cfg.num_layers)
     elif "decode" in kernels:
         assert seen["flash"] == seen["decode"]
+
+
+def test_mamba2_step_launcher_refuses_what_the_kernels_do_not_take():
+    """The fused decode step's launcher, on CPU tensors: each shape, dtype
+    and layout it does not take raises before the device check, and a
+    right set reaches only that check."""
+    bf = torch.bfloat16
+    h, p, n, g = 4, 16, 16, 2
+    d_inner, conv_dim = h * p, h * p + 2 * g * n
+
+    def args(**kw):
+        a = dict(zx=torch.zeros((2, 1, d_inner + conv_dim + h), dtype=bf),
+                 conv_w=torch.zeros((4, conv_dim), dtype=bf),
+                 conv_b=torch.zeros(conv_dim, dtype=bf), dt_bias=torch.zeros(h),
+                 a_log=torch.zeros(h), d_skip=torch.zeros(h),
+                 norm_scale=torch.zeros(d_inner, dtype=bf), h=torch.zeros((2, h, p, n)),
+                 conv_state=torch.zeros((2, 3, conv_dim), dtype=bf))
+        a.update(kw)
+        return a
+
+    with pytest.raises(ValueError, match="CUDA"):  # right: only the device is wrong
+        tm2.mamba2_step_fwd(**args(), groups=g, eps=1e-5)
+    wide = torch.zeros((2, 1, d_inner + conv_dim + h + 8), dtype=bf)[..., 8:]
+    with pytest.raises(ValueError, match="CUDA"):  # a strided zx view is taken
+        tm2.mamba2_step_fwd(**args(zx=wide), groups=g, eps=1e-5)
+    refused = [
+        (dict(), dict(groups=3), ValueError, "groups"),
+        (dict(zx=torch.zeros((2, 1, d_inner + conv_dim), dtype=bf)), {}, ValueError, "zx"),
+        (dict(conv_w=torch.zeros((3, conv_dim), dtype=bf)), {}, ValueError, "conv weight"),
+        (dict(conv_state=torch.zeros((2, 2, conv_dim), dtype=bf)), {}, ValueError,
+         "conv state"),
+        (dict(norm_scale=torch.zeros(d_inner + 1, dtype=bf)), {}, ValueError, "norm scale"),
+        (dict(d_skip=torch.zeros(h + 1)), {}, ValueError, "d_skip"),
+        (dict(conv_b=torch.zeros(conv_dim)), {}, TypeError, "all alike"),
+        (dict(a_log=torch.zeros(h, dtype=bf)), {}, TypeError, "float32"),
+        (dict(h=torch.zeros((2, h, n, p)).transpose(2, 3)), {}, ValueError, "contiguous"),
+        (dict(zx=torch.zeros((2, 1, 2 * (d_inner + conv_dim + h)), dtype=bf)[..., ::2]), {},
+         ValueError, "stride 1"),
+    ]
+    for over, kw, err, match in refused:
+        with pytest.raises(err, match=match):
+            tm2.mamba2_step_fwd(**args(**over), **{"groups": g, "eps": 1e-5, **kw})
+    p8 = dict(zx=torch.zeros((2, 1, 32 + 32 + 64 + 4), dtype=bf), h=torch.zeros((2, 4, 8, 16)),
+              conv_w=torch.zeros((4, 96), dtype=bf), conv_b=torch.zeros(96, dtype=bf),
+              norm_scale=torch.zeros(32, dtype=bf),
+              conv_state=torch.zeros((2, 3, 96), dtype=bf))
+    with pytest.raises(ValueError, match="head dim 8"):
+        tm2.mamba2_step_fwd(**args(**p8), groups=g, eps=1e-5)
+    assert [tm2.splits(b, 112, 64) for b in (1, 2, 4, 8, 32)] == [8, 4, 2, 1, 1]
+    assert tm2.splits(1, 8, 16) == 2  # a block keeps at least 8 rows
 
 
 def _mlstm_np(seed, b, s, h, d):
@@ -521,15 +592,17 @@ def test_grouped_ssd_launcher_refuses_what_the_kernel_does_not_take():
 def test_published_zamba2_inputs_meet_the_kernels_layout_rules(monkeypatch):
     """The tensors the published layout (Zamba2-7B's, at a small size, in
     bf16 as served) hands to ``ops.flash_attention``,
-    ``ops.decode_attention`` and ``ops.ssd_scan`` pass every check of the
-    kernels' launchers (16-byte rows, grouped B and C, the tensor-core SSD
-    path); on the CPU only the device check is left."""
+    ``ops.decode_attention``, ``ops.ssd_scan`` and ``ops.mamba2_step`` pass
+    every check of the kernels' launchers (16-byte rows, grouped B and C,
+    the tensor-core SSD path, the decode step's two groups); on the CPU only
+    the device check is left."""
     cfg = dataclasses.replace(
         tget_config("zamba2-7b"), num_layers=5, d_model=64, num_heads=2, num_kv_heads=2,
         head_dim=64, d_ff=96, vocab_size=128, max_seq_len=64, ssm_state=16, ssm_head_dim=16,
         ssm_chunk=8, hybrid_layer_ids=(1, 4), attention_hidden_size=128, adapter_rank=8)
     flash, decode, ssd = tops.flash_attention, tops.decode_attention, tops.ssd_scan
-    seen = {"flash": 0, "decode": 0, "ssd": 0}
+    mamba2 = tops.mamba2_step
+    seen = {"flash": 0, "decode": 0, "ssd": 0, "mamba2": 0}
 
     def flash_checked(q, k, v, *, causal=True):
         with pytest.raises(ValueError, match="CUDA"):
@@ -552,7 +625,15 @@ def test_published_zamba2_inputs_meet_the_kernels_layout_rules(monkeypatch):
         seen["ssd"] += 1
         return ssd(x, dt, a, b, c, chunk=chunk)
 
+    def mamba2_checked(*args, groups=1, eps=1e-6):
+        assert groups == cfg.ssm_groups and eps == cfg.norm_eps
+        with pytest.raises(ValueError, match="CUDA"):
+            tm2.mamba2_step_fwd(*args, groups=groups, eps=eps)
+        seen["mamba2"] += 1
+        return mamba2(*args, groups=groups, eps=eps)
+
     monkeypatch.setattr(tops, "flash_attention", flash_checked)
+    monkeypatch.setattr(tops, "mamba2_step", mamba2_checked)
     monkeypatch.setattr(tops, "decode_attention", decode_checked)
     monkeypatch.setattr(tops, "ssd_scan", ssd_checked)
     model = Model(cfg)
@@ -561,4 +642,4 @@ def test_published_zamba2_inputs_meet_the_kernels_layout_rules(monkeypatch):
     cache = model.init_cache(2, 16)
     logits, cache = model.prefill(params, prompt, cache)
     model.decode_step(params, logits.argmax(-1)[:, -1:], cache)
-    assert seen == {"flash": 2, "decode": 2, "ssd": 5}
+    assert seen == {"flash": 2, "decode": 2, "ssd": 5, "mamba2": 5}

@@ -559,7 +559,7 @@ def test_full_width_seamless_launches(cuda):
     logits, cache = model.prefill(params, {"frames": frames, "tokens": tokens}, cache)
     torch.cuda.synchronize()
     assert tops.launches() == {"flash_attention": 72, "decode_attention": 0,
-                               "mlstm_attention": 0, "ssd_scan": 0}
+                               "mlstm_attention": 0, "ssd_scan": 0, "mamba2_step": 0}
     logits, cache = model.decode_step(params, logits.argmax(-1), cache)
     torch.cuda.synchronize()
     assert tops.launches()["decode_attention"] == 48
@@ -684,3 +684,130 @@ class TestZamba2SevenBKernels:
         shared = tops.ssd_scan(x, dt, a, bb[:, :, 0], cc[:, :, 0], chunk=128)
         torch.cuda.synchronize()
         torch.testing.assert_close(one, shared, rtol=0, atol=0)
+
+
+def _mamba2_layer(seed, h, p, n, groups, dtype, device):
+    """A Mamba-2 layer of ``h`` heads of ``p`` (d_model h·p / 2), state
+    ``n``, B and C in ``groups`` groups, in ``dtype`` (a_log, dt_bias and D
+    f32, as the model keeps them); the conv bias, dt bias, D and the norm's
+    scale are perturbed, so that a wrong channel, head or group shows."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator().manual_seed(seed)
+    layer = ssm.init_mamba2(gen, h * p // 2, n, torch.float32, head_dim=p, groups=groups)
+    layer["conv_bias"] = 0.1 * torch.randn(layer["conv_bias"].shape, generator=gen)
+    layer["dt_bias"] = 0.5 * torch.randn(h, generator=gen)
+    layer["d_skip"] = 1.0 + 0.5 * torch.randn(h, generator=gen)
+    layer["norm_scale"] = 1.0 + 0.1 * torch.randn(h * p, generator=gen)
+    f32 = ("a_log", "dt_bias", "d_skip")
+    return {k: (v if k in f32 else v.to(getattr(torch, dtype))).to(device)
+            for k, v in layer.items()}
+
+
+def _mamba2_step_args(layer, zx, state):
+    return (zx, layer["conv"], layer["conv_bias"], layer["dt_bias"], layer["a_log"],
+            layer["d_skip"], layer["norm_scale"], state["h"], state["conv"])
+
+
+@pytest.mark.cuda
+class TestMamba2StepKernel:
+    """The fused Mamba-2 decode step (``ops.mamba2_step``) against its plain
+    version, the model's own mixer (``ssm.mamba2_mix``, step=True): the
+    output, the state and the conv state, each step from the plain path's
+    own state, f32 to TOL and bf16 to SSD_TOL; one launch a layer a step,
+    counted under a graph capture too."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b", [1, 8, 32])
+    @pytest.mark.parametrize("h,p,n,groups", [
+        (16, 64, 64, 2),   # Zamba2-7B's head and state sizes, two groups
+        (8, 64, 64, 1),    # Zamba2-1.2B's layout: B and C shared
+        (8, 16, 16, 2),    # the reduced configs' sizes
+        (8, 16, 16, 1),
+    ])
+    def test_steps_after_a_prefill_match_plain(self, cuda, b, h, p, n, groups, dtype):
+        from repro_torch.models import ssm
+
+        layer = _mamba2_layer(h + p + groups, h, p, n, groups, dtype, cuda)
+        d_model, conv_dim = h * p // 2, h * p + 2 * groups * n
+        kw = dict(d_state=n, head_dim=p, chunk=32, groups=groups, norm_eps=1e-5)
+        gen = torch.Generator(device=cuda).manual_seed(b)
+        xs = torch.randn((b, 40 + 8, d_model), generator=gen, device=cuda).to(getattr(torch,
+                                                                                       dtype))
+        state = {"h": torch.zeros((b, h, p, n), device=cuda),
+                 "conv": torch.zeros((b, 3, conv_dim), dtype=xs.dtype, device=cuda)}
+        tops.reset_launches()
+        ssm.mamba2_forward(layer, xs[:, :40], state=state, **kw)  # the prefill hands off
+        plain = {k: v.clone() for k, v in state.items()}
+        tol = TOL if dtype == "float32" else SSD_TOL
+        for i in range(40, 48):
+            got, _ = ssm.mamba2_forward(layer, xs[:, i:i + 1], state=state, step=True, **kw)
+            with tops.plain_versions():
+                want, _ = ssm.mamba2_forward(layer, xs[:, i:i + 1], state=plain, step=True,
+                                             **kw)
+            torch.cuda.synchronize()
+            _close(got, want, dtype, tol)
+            _close(state["h"], plain["h"], dtype, tol)
+            assert torch.equal(state["conv"], plain["conv"]), f"step {i - 40}: conv state"
+        assert tops.launches()["mamba2_step"] == 8 and tops.launches()["ssd_scan"] == 1
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_strided_in_proj_view_and_graph_capture(self, cuda, dtype):
+        """zx a column slice of a wider buffer (row stride 24 elements
+        more), the mixer at Zamba2-7B's widths (112 heads of 64, state 64,
+        two groups) and bucket 2: held to the plain version on the same
+        inputs; captured into a CUDA graph it records one launch, and a
+        replay from a given state gives eager's bits."""
+        h, p, n, groups, b = 112, 64, 64, 2, 2
+        layer = _mamba2_layer(7, h, p, n, groups, dtype, cuda)
+        width = h * p + h * p + 2 * groups * n + h
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        dt = getattr(torch, dtype)
+        zx = torch.randn((b, 1, width + 24), generator=gen, device=cuda).to(dt)[..., 8:8 + width]
+        state0 = {"h": 0.5 * torch.randn((b, h, p, n), generator=gen, device=cuda),
+                  "conv": torch.randn((b, 3, width - h * p - h), generator=gen,
+                                      device=cuda).to(dt)}
+        got_state = {k: v.clone() for k, v in state0.items()}
+        want_state = {k: v.clone() for k, v in state0.items()}
+        got = tops.mamba2_step(*_mamba2_step_args(layer, zx, got_state), groups=groups,
+                               eps=1e-5)
+        want = tref.mamba2_step(*_mamba2_step_args(layer, zx.contiguous(), want_state),
+                                groups=groups, eps=1e-5)
+        torch.cuda.synchronize()
+        tol = TOL if dtype == "float32" else SSD_TOL
+        _close(got, want, dtype, tol)
+        _close(got_state["h"], want_state["h"], dtype, tol)
+        assert torch.equal(got_state["conv"], want_state["conv"])
+
+        graph_state = {k: v.clone() for k, v in state0.items()}
+        graph = torch.cuda.CUDAGraph()
+        with tops.recording() as recorded, torch.cuda.graph(graph):
+            out = tops.mamba2_step(*_mamba2_step_args(layer, zx, graph_state), groups=groups,
+                                   eps=1e-5)
+        assert dict(recorded) == {"mamba2_step": 1}
+        for name, v in state0.items():
+            graph_state[name].copy_(v)
+            got_state[name].copy_(v)
+        graph.replay()
+        eager = tops.mamba2_step(*_mamba2_step_args(layer, zx, got_state), groups=groups,
+                                 eps=1e-5)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert all(torch.equal(graph_state[k], got_state[k]) for k in state0)
+
+    def test_engine_launches_once_a_layer_a_step(self, cuda):
+        """Reduced Zamba2 through the engine's graphs: a generate launches
+        the step ``num_layers × (gen_len − 1)`` times and the SSD scan
+        ``num_layers`` times, captured and replayed alike."""
+        eng = TestEngineOnCard._engine("zamba2-1.2b", cuda)
+        prompts = np.random.default_rng(6).integers(0, eng.cfg.vocab_size,
+                                                    (2, 16)).astype(np.int32)
+        for _ in range(2):
+            tops.reset_launches()
+            steps = eng.decode_steps
+            eng.generate(prompts)
+            torch.cuda.synchronize()
+            assert eng.decode_steps - steps == eng.ecfg.gen_len - 1
+            assert tops.launches()["mamba2_step"] == eng.cfg.num_layers * (eng.ecfg.gen_len - 1)
+            assert tops.launches()["ssd_scan"] == eng.cfg.num_layers
+        assert eng.graph_replays == 2

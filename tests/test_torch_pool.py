@@ -327,4 +327,4 @@ def test_launch_counts_stay_exact_under_threads():
         sys.setswitchinterval(old)
         ops.reset_launches()
     assert counts == {"flash_attention": 0, "decode_attention": 8 * 20_000,
-                      "mlstm_attention": 0, "ssd_scan": 0}
+                      "mlstm_attention": 0, "ssd_scan": 0, "mamba2_step": 0}

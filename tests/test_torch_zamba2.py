@@ -88,6 +88,44 @@ def test_ssd_scan_matches_jax_kernel(b, s, h, p, n, chunk, dtype):
     _close(got, kernel(jx, jdt, ja, jb, jc), SSD_TOL[dtype])
 
 
+def test_mamba2_step_wrapper_runs_plain_on_cpu_and_matches_jax(reduced):
+    """``ops.mamba2_step`` given CPU tensors runs the plain mixer
+    (``ssm.mamba2_mix``, step=True) and counts no launch; decode steps
+    streamed through it from a prefill's state match the JAX mixer, state
+    and conv state included."""
+    jcfg, _, params_np = reduced
+    layer = jax.tree_util.tree_map(lambda a: a[2], params_np["layers"]["mamba"])
+    jp = jax.tree_util.tree_map(jnp.asarray, layer)
+    tp = convert.from_jax(layer)
+    kw = dict(d_state=jcfg.ssm_state, head_dim=jcfg.ssm_head_dim)
+    rng = np.random.default_rng(5)
+    b, s = 3, 12
+    x = rng.standard_normal((b, s, jcfg.d_model)).astype(np.float32)
+    steps = rng.standard_normal((4, b, 1, jcfg.d_model)).astype(np.float32)
+    jfwd = jax.jit(functools.partial(jssm.mamba2_forward, chunk=jcfg.ssm_chunk, **kw))
+    jstate = jssm.init_mamba2_state(b, jcfg.d_model, jcfg.ssm_state, jnp.float32,
+                                    head_dim=jcfg.ssm_head_dim)
+    tstate = tssm.init_mamba2_state(b, jcfg.d_model, jcfg.ssm_state, torch.float32,
+                                    head_dim=jcfg.ssm_head_dim)
+    _, jstate = jfwd(jp, jnp.asarray(x), state=jstate)
+    tssm.mamba2_forward(tp, torch.from_numpy(x), chunk=jcfg.ssm_chunk, state=tstate, **kw)
+    weights = (tp["conv"], tp["conv_bias"], tp["dt_bias"], tp["a_log"], tp["d_skip"],
+               tp["norm_scale"])
+    tops.reset_launches()
+    for xt in steps:
+        jout, jstate = jfwd(jp, jnp.asarray(xt), state=jstate)
+        zx = torch.from_numpy(xt) @ tp["in_proj"]
+        h, conv = tstate["h"].clone(), tstate["conv"].clone()
+        y = tops.mamba2_step(zx, *weights, tstate["h"], tstate["conv"])  # the JAX eps, 1e-6
+        plain = tssm.mamba2_mix(tp, zx, state={"h": h, "conv": conv}, step=True, **kw)
+        assert torch.equal(y, plain) and y.shape == (b, 1, tp["norm_scale"].shape[0])
+        assert torch.equal(h, tstate["h"]) and torch.equal(conv, tstate["conv"])
+        _close(y @ tp["out_proj"], jout)
+    assert tops.launches()["mamba2_step"] == 0  # a CPU tensor takes the plain version
+    _close(tstate["h"], jstate["h"])
+    _close(tstate["conv"], jstate["conv"])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_pieces_match_jax(dtype):
     """ssd_chunked (y and the final state, from a nonzero h0), the
